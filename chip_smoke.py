@@ -1,24 +1,36 @@
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: every CUDA kernel of the path, compiled with nvcc for sm_90a;
-3. each kernel against its plain torch version on the card: the first
-   ``dynamic_swarm`` eval batch at full shapes (f32 and bf16 values) and a
-   crafted graph with empty rows, duplicate edges, padded nodes and a
-   feature width that takes the kernel's scalar path;
+2. build: every CUDA kernel of both paths, compiled with nvcc for sm_90a
+   (one nvcc per source, all started together);
+3. each kernel against its plain torch version on the card: the fused
+   attention on the first ``dynamic_swarm`` eval batch (f32 and bf16
+   values); the SDDMM, SpMM and transposed SpMM on the first train batch
+   at the training step's shapes (f32, bf16, and an f32 cotangent against
+   bf16 values); all of them on a crafted graph with empty rows,
+   duplicate edges, a degree-100 row and padded nodes at D 1030 (scalar
+   path) and 4096; the transposed SpMM twice, bit for bit; the fused
+   attention's gradients against autograd through its plain version;
 4. serving: ``dynamic_swarm`` at full width (64x64 images, encoder
    32/64/128, 8 scenes x 32 robots, 6 classes, numpy renderer) with random
    seeded weights; three eval batches through ``Predictor``, checked for
    range, for one kernel launch per fusion layer and head per request, and
    against the same Predictor with the plain ops;
-5. timings with CUDA events (medians): each kernel beside its bound, its
+5. training: the same model, seeded, ``ops_impl="auto"``, three steps of
+   ``train.make_train_step`` on the first three train batches, checked for
+   finite losses and grad norms, for the launches of every kernel per step,
+   and against the same three steps with the plain ops on the card;
+6. timings with CUDA events (medians): each kernel beside its bound, its
    plain version and a library yardstick; the Predictor's device-side batch
-   latency and its whole-request latency (host clock); a profiler breakdown
-   of device time by kernel over five requests.
+   latency and whole-request latency; the train step's device time with
+   the kernels and with the plain ops, one whole step through ``train()``
+   (host clock, data included), peak memory, and profiler breakdowns of
+   device time by kernel.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -27,6 +39,8 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import statistics
@@ -38,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mrp_gnn_tpu_torch import train
 from mrp_gnn_tpu_torch.config import get_config
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
 from mrp_gnn_tpu_torch.graph import build_graph_batch
@@ -50,10 +65,24 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 TOL_F32 = 2e-5               # kernel vs plain, f32: sums in another order
 TOL_BF16_REL = 2.0 ** -7     # bf16 outputs: one bf16 ulp, relative
 TOL_SERVE_DEPTH_M = 1e-3     # kernel vs plain ops through the whole net, metres
+TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
+# Function gradients vs autograd through the plain version, relative to the
+# largest gradient: f32 sums in another order; with bf16 values the plain
+# autograd rounds each slot's value gradient to bf16 before summing them.
+TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
+                      "spmm_t_kernel")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[phase] {name}: {time.perf_counter() - t0:.2f} s")
 
 
 def cuda_ms(fn, reps: int = 15, inner: int = 20, warmup: int = 3) -> float:
@@ -73,6 +102,32 @@ def cuda_ms(fn, reps: int = 15, inner: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 30) -> float:
+    """Device time per call of ``fn``: the device time of every kernel and
+    copy it launches, from the profiler (CUPTI), over ``n`` calls. Unlike
+    back-to-back CUDA events it leaves out the gaps in which the device
+    waits for the host, which dominate a call whose kernel takes
+    microseconds. A profiler session that records no device activity at
+    all (seen once on an H100) is repeated, at most twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / n / 1e3
+        log(f"[timing] profiler session {attempt + 1} saw no device time")
+    raise AssertionError("the profiler saw no device time")
 
 
 def phase_device() -> dict:
@@ -123,15 +178,21 @@ def crafted_graph():
     return build_graph_batch([a, b], [6, 12], max_nodes=32, max_edges=128)
 
 
-def check_kernel_vs_plain(name, got, want, bf16: bool) -> float:
-    err = float((got.float() - want.float()).abs().max())
+def check_kernel_vs_plain(name, got, want, bf16: bool, scale: float = 1.0) -> float:
+    """f32: max abs err <= TOL_F32 * scale, where ``scale`` is the size of
+    the summed values (1 for weighted sums of O(1) values; sqrt(D) for a
+    D-long dot of O(1) products); bf16 outputs: one bf16 ulp."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     if bf16:
         ok = torch.allclose(got.float(), want.float(), rtol=TOL_BF16_REL,
                             atol=1e-6)
         tol = f"rtol {TOL_BF16_REL} (one bf16 ulp)"
     else:
-        ok = err <= TOL_F32
-        tol = f"atol {TOL_F32}"
+        ok = err <= TOL_F32 * scale
+        tol = f"atol {TOL_F32 * scale:.3g}"
     log(f"[kernel] {name}: max abs err {err:.3e} against {tol}")
     if not ok or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -174,6 +235,116 @@ def phase_kernels(dev) -> dict:
     return {"graph": g, "q": q, "k": k, "v": v, "errs": errs}
 
 
+def backward_inputs(g, dk: int, D: int, seed: int, dev) -> dict:
+    """The operands of the fused attention's backward on graph ``g``:
+    q_s, k, values, an output cotangent, and the alpha and dlog the plain
+    version derives from them."""
+    q, k, v = attention_inputs(g.max_nodes, dk, D, seed, dev)
+    (ct,) = attention_inputs(g.max_nodes, 1, D, seed + 1, dev)[2:]
+    q_s, kf = bsp._scaled(q, k)
+    alpha = bsp.masked_softmax(
+        bsp.sddmm_reference(q_s, kf, g.ell_src, g.ell_mask), g.ell_mask)
+    dalpha = bsp.sddmm_reference(ct, v, g.ell_src, g.ell_mask)
+    dlog = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
+    dlog = torch.where(g.ell_mask, dlog, 0.0)
+    return {"graph": g, "q": q, "k": k, "q_s": q_s, "kf": kf, "v": v,
+            "ct": ct, "alpha": alpha, "dlog": dlog}
+
+
+def check_backward_kernels(x: dict, tag: str, errs: dict | None = None) -> None:
+    """Each backward kernel against its plain version on the operands of
+    ``backward_inputs``, with f32 and bf16 values."""
+    g = x["graph"]
+    src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+    D = x["v"].shape[1]
+    for vdt, gdt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.bfloat16)):
+        v, ct = x["v"].to(vdt), x["ct"].to(gdt)
+        name = f"{tag} values {vdt} cotangent {gdt}"
+        lo, da = bsp.sddmm(x["q_s"], x["kf"], src, mask, ct, v)
+        want_lo = bsp.sddmm_reference(x["q_s"], x["kf"], src, mask)
+        want_da = bsp.sddmm_reference(ct, v, src, mask)
+        e1 = check_kernel_vs_plain(f"bsp_sddmm logits, {name}", lo, want_lo, False)
+        e2 = check_kernel_vs_plain(f"bsp_sddmm dalpha, {name}", da, want_da,
+                                   False, scale=D ** 0.5)
+        dv = bsp.spmm_t(x["alpha"], ct, src, mask, V, vdt)
+        again = bsp.spmm_t(x["alpha"], ct, src, mask, V, vdt)
+        torch.cuda.synchronize()
+        if not torch.equal(dv, again):
+            raise AssertionError(f"bsp_spmm_t, {name}: two runs differ")
+        e3 = check_kernel_vs_plain(
+            f"bsp_spmm_t dvalues (bit-identical rerun), {name}", dv,
+            bsp.spmm_t_reference(x["alpha"], ct, src, mask, V, vdt),
+            vdt == torch.bfloat16)
+        sv = bsp.spmm(x["alpha"], v, src, mask)
+        e4 = check_kernel_vs_plain(f"bsp_spmm alpha x values, {name}", sv,
+                                   bsp.spmm_reference(x["alpha"], v, src, mask),
+                                   vdt == torch.bfloat16)
+        if errs is not None and vdt == gdt == torch.float32:
+            errs.update(bsp_sddmm=max(e1, e2), bsp_spmm_t=e3, bsp_spmm=e4)
+    dq = bsp.spmm(x["dlog"], x["kf"], src, mask)
+    err = check_kernel_vs_plain(f"bsp_spmm dq, {tag}", dq,
+                                bsp.spmm_reference(x["dlog"], x["kf"], src, mask),
+                                False)
+    dk = bsp.spmm_t(x["dlog"], x["q_s"], src, mask, V)
+    err_t = check_kernel_vs_plain(
+        f"bsp_spmm_t dk, {tag}", dk,
+        bsp.spmm_t_reference(x["dlog"], x["q_s"], src, mask, V), False)
+    if errs is not None:
+        errs["bsp_spmm"] = max(errs["bsp_spmm"], err)
+        errs["bsp_spmm_t"] = max(errs["bsp_spmm_t"], err_t)
+    named = torch.zeros(V, dtype=torch.bool, device=src.device)
+    named[src[mask].long()] = True
+    if not (bool((dk[~named] == 0).all()) and bool((dq[~mask.any(1)] == 0).all())):
+        raise AssertionError(f"{tag}: rows without a valid slot must be 0")
+
+
+def check_function_grads(x: dict, tag: str) -> None:
+    """FusedAttention's gradients (kernels) against autograd through the
+    plain version, on the card."""
+    g = x["graph"]
+    for dt in (torch.float32, torch.bfloat16):
+        grads = []
+        for fn in (bsp.bsp_attention_fused, bsp.bsp_attention_fused_reference):
+            q = x["q"].detach().clone().requires_grad_()
+            k = x["k"].detach().clone().requires_grad_()
+            v = x["v"].detach().to(dt).requires_grad_()
+            (fn(q, k, v, g).float() * x["ct"]).sum().backward()
+            grads.append((q.grad, k.grad, v.grad))
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dq", "dk", "dvalues"), *grads):
+            rel = float((got.float() - want.float()).abs().max()
+                        / want.float().abs().max().clamp(min=1e-30))
+            log(f"[kernel] FusedAttention {name}, {tag}, values {dt}: max err "
+                f"{rel:.3e} of the largest gradient (tol {TOL_GRAD_REL[dt]:.3g})")
+            if got.dtype != want.dtype or not rel <= TOL_GRAD_REL[dt]:
+                raise AssertionError(f"FusedAttention {name}: kernel backward "
+                                     "disagrees with autograd of the plain version")
+
+
+def phase_train_kernels(dev) -> dict:
+    cfg = swarm_config()
+    batch = next(iter(make_dataset(cfg.data, "train")))
+    g = batch["graph"].to(dev)
+    m = cfg.model
+    hw = m.image_size[0] // m.bottleneck_stride
+    D = hw * hw * m.encoder_channels[-1]
+    log(f"[kernel] dynamic_swarm train batch 0: V {g.max_nodes}, deg "
+        f"{g.ell_src.shape[1]}, valid edges {int(g.ell_mask.sum())}, dk "
+        f"{m.attention_dim}, D {D}")
+    x = backward_inputs(g, m.attention_dim, D, 3, dev)
+    errs = {}
+    check_backward_kernels(x, "swarm train", errs)
+    check_function_grads(x, "swarm train")
+    cg = crafted_graph().to(dev)
+    for D_c in (1030, 4096):
+        xc = backward_inputs(cg, m.attention_dim, D_c, 5, dev)
+        check_backward_kernels(xc, f"crafted D {D_c}")
+        check_function_grads(xc, f"crafted D {D_c}")
+    return {"inputs": x, "errs": errs}
+
+
 def phase_serving(dev) -> dict:
     cfg = swarm_config()
     cfg_plain = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
@@ -187,7 +358,7 @@ def phase_serving(dev) -> dict:
     it = iter(make_dataset(cfg.data, "eval", shuffle=False))
     for _ in range(3):
         batches.append(next(it))
-    bsp.fused_attention.launches = 0  # main path starts here
+    bsp.reset_launches()  # the serving path starts here
     outs = []
     for i, b in enumerate(batches):
         pred = Predictor(cfg, model, graph=b["graph"])
@@ -198,8 +369,8 @@ def phase_serving(dev) -> dict:
             raise AssertionError(f"request {i}: {got} kernel launches, "
                                  f"expected {per_request}")
         outs.append(out)
-    launches = bsp.fused_attention.launches  # main path ends here
-    if launches == 0:
+    launches = bsp.launch_counts()  # the serving path ends here
+    if launches["bsp_fused_attention"] == 0:
         raise AssertionError("the serving path never launched the kernel")
     max_err = 0.0
     for i, (b, out) in enumerate(zip(batches, outs)):
@@ -222,33 +393,104 @@ def phase_serving(dev) -> dict:
         if err > TOL_SERVE_DEPTH_M:
             raise AssertionError(f"request {i}: kernel path disagrees with "
                                  "the plain ops")
-    log(f"[serve] 3 requests served, kernel launches {launches} "
-        f"({per_request} per request)")
+    log(f"[serve] 3 requests served, kernel launches {launches}")
     return {"model": model, "cfg": cfg, "batches": batches,
-            "launches": {"bsp_fused_attention": launches},
-            "depth_err": max_err}
+            "launches": launches, "depth_err": max_err}
 
 
-def fused_attention_bound_ms(q, k, v, ell_src, ell_mask) -> tuple:
-    """Least time for the function on an H100 from this run's inputs:
-    each input read once and the output written once, against the valid
-    edges' f32 work (logits, exp, weighted sum)."""
+def phase_train(dev) -> dict:
+    """Three full-width train steps through the kernels, then the same three
+    steps from the same weights through the plain ops, on the card."""
+    cfg = swarm_config()
+    cfg_plain = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
+                                                         ops_impl="xla"))
+    m = cfg.model
+    heads = m.num_fusion_layers * m.attention_heads
+    per_step = {"bsp_fused_attention": heads, "bsp_sddmm": heads,
+                "bsp_spmm": heads, "bsp_spmm_t": 2 * heads}
+    it = iter(make_dataset(cfg.data, "train"))
+    inputs = [train.batch_to_device(next(it), dev) for _ in range(3)]
+    state = train.create_train_state(cfg, dev)
+    plain_model = copy.deepcopy(state.model)
+    step = train.make_train_step(cfg, state.model, state.optimizer)
+    torch.cuda.synchronize()
+    bsp.reset_launches()  # the training path starts here
+    terms = []
+    for i, x in enumerate(inputs):
+        before = bsp.launch_counts()
+        state, t = step(state, *x)
+        after = bsp.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got != per_step:
+            raise AssertionError(f"train step {i}: launches {got}, expected "
+                                 f"{per_step}")
+        terms.append(t)
+    launches = bsp.launch_counts()  # the training path ends here
+    terms = [{k: float(v) for k, v in t.items()} for t in terms]
+    plain_opt = train.make_optimizer(cfg_plain, plain_model.parameters())
+    plain_state = train.TrainState(plain_model, plain_opt)
+    plain_step = train.make_train_step(cfg_plain, plain_model, plain_opt)
+    plain_terms = []
+    for x in inputs:
+        plain_state, t = plain_step(plain_state, *x)
+        plain_terms.append({k: float(v) for k, v in t.items()})
+    for i, (t, p) in enumerate(zip(terms, plain_terms)):
+        if not all(np.isfinite(list(t.values()))):
+            raise AssertionError(f"train step {i}: non-finite terms {t}")
+        rel = {k: abs(t[k] - p[k]) / max(abs(p[k]), 1e-30) for k in p}
+        log(f"[train] step {i}: {json.dumps(t)}; relative difference to the "
+            f"plain ops {json.dumps(rel)} (tol {TOL_TRAIN_REL})")
+        if sorted(t) != sorted(p) or max(rel.values()) > TOL_TRAIN_REL:
+            raise AssertionError(f"train step {i}: kernels and plain ops "
+                                 "disagree")
+    # Both runs start from the same weights; an Adam step moves an element by
+    # at most about its lr (|m_hat| / sqrt(v_hat) <= 1 in the first steps)
+    # whatever the gradient's size, so where the true gradient is 0 (the
+    # attention's key bias) rounding noise may send the two runs apart by up
+    # to 2 x (sum of the lrs). Measured alongside.
+    lrs = [train.warmup_cosine_lr(cfg, c) for c in range(3)]
+    atol = 2 * sum(lrs)
+    with torch.no_grad():
+        diffs = sorted(((float((a - b).abs().max()), n) for (n, a), (_, b) in
+                        zip(state.model.named_parameters(),
+                            plain_model.named_parameters())), reverse=True)
+    log(f"[train] parameters after 3 steps, kernels vs plain ops: largest "
+        f"differences {[(n, f'{d:.3e}') for d, n in diffs[:3]]} (atol "
+        f"{atol:.3e}, lrs {lrs})")
+    if diffs[0][0] > atol:
+        raise AssertionError(f"parameter {diffs[0][1]} differs by "
+                             f"{diffs[0][0]} > {atol}")
+    log(f"[train] 3 steps, kernel launches {launches} ({per_step} per step)")
+    return {"cfg": cfg, "cfg_plain": cfg_plain, "state": state, "step": step,
+            "plain_state": plain_state, "plain_step": plain_step,
+            "inputs": inputs, "launches": launches, "terms": terms}
+
+
+def bound_ms(tensors_read, tensors_written, flops: float) -> tuple:
+    """Least time for a function on an H100: each input read once and each
+    output written once at the HBM rate, against its f32 work."""
     n_bytes = sum(t.numel() * t.element_size()
-                  for t in (q, k, v, ell_src, ell_mask)) + v.numel() * v.element_size()
-    edges = int(ell_mask.sum())
-    flops = edges * (2 * q.shape[1] + 1 + 2 * v.shape[1])
+                  for t in (*tensors_read, *tensors_written))
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             n_bytes, flops)
 
 
-def phase_timings(kin: dict, serve: dict, tag: dict) -> list:
+def fused_attention_bound_ms(q, k, v, ell_src, ell_mask) -> tuple:
+    """The fused attention's bound from this run's inputs: the valid edges'
+    f32 work is the logits, the exp and the weighted sum."""
+    edges = int(ell_mask.sum())
+    flops = edges * (2 * q.shape[1] + 1 + 2 * v.shape[1])
+    return bound_ms((q, k, v, ell_src, ell_mask), (v,), flops)
+
+
+def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
     g, q, k, v = kin["graph"], kin["q"], kin["k"], kin["v"]
     q_s, kf = bsp._scaled(q, k)
     args = (q_s, kf, v, g.ell_src, g.ell_mask)
-    ms = cuda_ms(lambda: bsp.fused_attention(*args))
-    plain_ms = cuda_ms(lambda: bsp.fused_attention_reference(*args))
+    kernel = lambda: bsp.fused_attention(*args)  # noqa: E731
+    plain = lambda: bsp.fused_attention_reference(*args)  # noqa: E731
     # Yardstick: dense masked SDPA over [V, V] (same function when the
     # graph has no duplicate edges); timed here, never called by the port.
     V = q.shape[0]
@@ -258,10 +500,12 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> list:
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q[None, None], k[None, None], v[None, None],
         attn_mask=allowed[None, None])[0, 0]
-    library_ms = cuda_ms(sdpa)
+    ms, plain_ms, library_ms = (device_ms(f) for f in (kernel, plain, sdpa))
+    call_ms = {n: cuda_ms(f) for n, f in (("kernel", kernel), ("plain", plain),
+                                          ("library", sdpa))}
     has = allowed.any(dim=1)
     sdpa_err = float((sdpa()[has] - bsp.fused_attention(*args)[has]).abs().max())
-    bound_ms, bound_by, n_bytes, flops = fused_attention_bound_ms(*args)
+    bound, bound_by, n_bytes, flops = fused_attention_bound_ms(*args)
     line = {"metric": "kernel_time", "kernel": "bsp_fused_attention",
             "shape": {"V": V, "deg": int(g.ell_src.shape[1]),
                       "dk": int(q.shape[1]), "D": int(v.shape[1]),
@@ -269,8 +513,11 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> list:
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention, dense [V, V] mask",
             "library_max_abs_err_vs_kernel": sdpa_err,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-            "flops": flops, "l2": "warm (back-to-back launches)", **tag}
+            "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+            "flops": flops, "l2": "warm (back-to-back launches)",
+            "timing": "ms, plain_ms, library_ms: device time per call "
+                      "(profiler); call_ms: back-to-back calls (CUDA events)",
+            "call_ms": call_ms, **tag}
     log(json.dumps(line))
 
     batch = serve["batches"][0]
@@ -292,28 +539,166 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> list:
                     "runs_latency_ms": [r["batch_latency_s"] * 1e3 for r in runs],
                     "request_ms_median": statistics.median(req),
                     "request_ms_max": req[-1], "requests": len(req), **tag}))
-    phase_profile(pred, batch["images"], tag)
-    return [{"name": "bsp_fused_attention", "route": "cuda",
-             "source": "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_attention.cu",
-             "replaces": "mrp_gnn_tpu/ops/pallas_bsp.py:707",
-             "launches": serve["launches"]["bsp_fused_attention"],
-             "max_abs_err": kin["errs"]["torch.float32"],
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}]
+    profile_device(lambda: pred(batch["images"]), 5, "predictor_profile",
+                   "requests", tag)
+    return {"name": "bsp_fused_attention", "route": "cuda",
+            "source": "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_attention.cu",
+            "replaces": "mrp_gnn_tpu/ops/pallas_bsp.py:707",
+            "max_abs_err": kin["errs"]["torch.float32"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
-def phase_profile(pred, images, tag: dict) -> None:
-    """Device time by kernel over 5 requests (torch.profiler, CUPTI), and the
-    share of the window with no device work (host clock, profiler on)."""
+def _csr(rows, cols, vals, shape):
+    """A CSR matrix for the library yardsticks (duplicate entries summed)."""
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
+    """Each backward kernel at the training step's shapes (f32), beside its
+    bound, its plain version and a one-call library yardstick."""
+    x = tk["inputs"]
+    g = x["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    V, deg = src.shape
+    edges = int(mask.sum())
+    rows = torch.arange(V, device=src.device)[:, None].expand(V, deg)[mask]
+    cols = src[mask].long()
+    q_s, kf, v, ct, alpha, dlog = (x[n] for n in ("q_s", "kf", "v", "ct",
+                                                  "alpha", "dlog"))
+    D, dk = v.shape[1], q_s.shape[1]
+    view = bsp.source_view(src, mask, V)
+    out = []
+
+    def record(name, src_file, replaces, shape, fn, plain, library, lib_name,
+               bound):
+        ms, plain_ms, library_ms = (device_ms(f) for f in (fn, plain, library))
+        call_ms = {"kernel": cuda_ms(fn), "plain": cuda_ms(plain, reps=7),
+                   "library": cuda_ms(library)}
+        b_ms, b_by, n_bytes, flops = bound
+        log(json.dumps({"metric": "kernel_time", "kernel": name,
+                        "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "library": lib_name,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                        "flops": flops, "l2": "warm (back-to-back launches)",
+                        "timing": "ms, plain_ms, library_ms: device time per "
+                                  "call (profiler); call_ms: back-to-back "
+                                  "calls (CUDA events)",
+                        "call_ms": call_ms, **tag}))
+        out.append({"name": name, "route": "cuda", "source": src_file,
+                    "replaces": replaces, "max_abs_err": tk["errs"][name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": library_ms})
+
+    # SDDMM, dual form: (q_s, k) and (g, values), as the backward calls it.
+    pattern = _csr(rows, cols, torch.ones(edges, device=src.device), (V, V))
+    kT, vT = kf.t().contiguous(), v.t().contiguous()
+    record("bsp_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
+           "mrp_gnn_tpu/ops/pallas_bsp.py:377",
+           {"V": V, "deg": deg, "d1": dk, "d2": D, "edges": edges,
+            "form": "dual", "dtype": "float32"},
+           lambda: bsp.sddmm(q_s, kf, src, mask, ct, v),
+           lambda: (bsp.sddmm_reference(q_s, kf, src, mask),
+                    bsp.sddmm_reference(ct, v, src, mask)),
+           lambda: (torch.sparse.sampled_addmm(pattern, q_s, kT, beta=0.0),
+                    torch.sparse.sampled_addmm(pattern, ct, vT, beta=0.0)),
+           "torch.sparse.sampled_addmm x2 on the deduplicated [V, V] pattern",
+           bound_ms((q_s, kf, ct, v, src, mask),
+                    (alpha, dlog), 2 * edges * (dk + D)))  # 2 x [V, deg] f32 out
+    # SpMM as dq = SpMM(dlog, k).
+    w_csr = _csr(rows, cols, dlog[mask], (V, V))
+    record("bsp_spmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm.cu",
+           "mrp_gnn_tpu/ops/pallas_bsp.py:237",
+           {"V": V, "deg": deg, "D": dk, "edges": edges, "use": "dq",
+            "dtype": "float32"},
+           lambda: bsp.spmm(dlog, kf, src, mask),
+           lambda: bsp.spmm_reference(dlog, kf, src, mask),
+           lambda: torch.sparse.mm(w_csr, kf), "torch.sparse.mm(CSR of w, x)",
+           bound_ms((dlog, kf, src, mask), (kf,), 2 * edges * dk))
+    # Transposed SpMM as dvalues = SpMM_T(alpha, g), the larger of its two
+    # calls; the dk call and the view build are logged beside it.
+    wt_csr = _csr(cols, rows, alpha[mask], (V, V))
+    record("bsp_spmm_t", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
+           "mrp_gnn_tpu/ops/pallas_bsp.py:459",
+           {"V": V, "deg": deg, "D": D, "edges": edges, "use": "dvalues",
+            "dtype": "float32"},
+           lambda: bsp.spmm_t(alpha, ct, src, mask, V, view=view),
+           lambda: bsp.spmm_t_reference(alpha, ct, src, mask, V),
+           lambda: torch.sparse.mm(wt_csr, ct),
+           "torch.sparse.mm(CSR of w transposed, x)",
+           bound_ms((alpha, ct, src, mask), (ct,), 2 * edges * D))
+    leaves = [t.detach().requires_grad_() for t in (q_s, kf, v)]
+    parts = {
+        "spmm_t_dk": lambda: bsp.spmm_t(dlog, q_s, src, mask, V, view=view),
+        "source_view": lambda: bsp.source_view(src, mask, V),
+        "backward": lambda: bsp.fused_attention_backward(q_s, kf, v, src,
+                                                         mask, ct),
+        "backward_plain_autograd": lambda: torch.autograd.grad(
+            bsp.fused_attention_reference(*leaves, src, mask), leaves, ct)}
+    log(json.dumps({"metric": "attention_backward",
+                    "device_ms": {n: device_ms(f) for n, f in parts.items()},
+                    "call_ms": {n: cuda_ms(f, reps=7) for n, f in parts.items()},
+                    "shape": {"V": V, "deg": deg, "dk": dk, "D": D,
+                              "edges": edges}, **tag}))
+    return out
+
+
+def phase_train_timings(tr: dict, tag: dict) -> None:
+    """Device-side train step (one fixed batch on the card, CUDA events),
+    kernels and plain ops in turns; peak memory; one whole step through
+    ``train()`` by host clock; a profiler breakdown over 5 steps."""
+    x = tr["inputs"][0]
+    kernels = lambda: tr["step"](tr["state"], *x)  # noqa: E731
+    plain = lambda: tr["plain_step"](tr["plain_state"], *x)  # noqa: E731
+    times = {"kernels": [], "plain": []}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        fn = kernels if name == "kernels" else plain
+        times[name].append(cuda_ms(fn, reps=3, inner=20, warmup=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        kernels()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    V = tr["inputs"][0][3].max_nodes
+    step_ms = statistics.mean(times["kernels"])
+    log(json.dumps({"metric": "train_step", "config": "dynamic_swarm",
+                    "views_per_step": V,
+                    "device_step_ms_kernels": times["kernels"],
+                    "device_step_ms_plain": times["plain"],
+                    "views_per_s_kernels": V / step_ms * 1e3,
+                    "views_per_s_plain": V / statistics.mean(times["plain"]) * 1e3,
+                    "peak_memory_bytes_kernels": peak,
+                    "timing": "CUDA events, median of 3 x 20 steps per turn; "
+                              "turns kernels, plain, plain, kernels", **tag}))
+    cfg = tr["cfg"].replace(train=dataclasses.replace(tr["cfg"].train,
+                                                      log_every=1))
+    _, records = train.train(cfg, num_steps=4, device=tr["inputs"][0][0].device)
+    log(json.dumps({"metric": "train_loop", "config": "dynamic_swarm",
+                    "step_time_s": [r["step_time_s"] for r in records],
+                    "views_per_s": [r["views_per_s"] for r in records],
+                    "edges_per_s": [r["edges_per_s"] for r in records],
+                    "timing": "host clock between steps of train(), the "
+                              "device synchronised by reading the terms, "
+                              "the next batch's render and copy included; "
+                              "step 1 includes first-call costs", **tag}))
+    profile_device(kernels, 5, "train_profile", "steps", tag)
+
+
+def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
+    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler,
+    CUPTI), and the share of the window with no device work (host clock,
+    profiler on)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
-        pred(images)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            pred(images)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = sorted(((e.key, e.self_device_time_total, e.count)
@@ -323,12 +708,18 @@ def phase_profile(pred, images, tag: dict) -> None:
     busy = sum(r[1] for r in kern)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    log(json.dumps({"metric": "predictor_profile", "requests": 5,
+    ours = {}
+    for key, t, _ in kern:
+        for body in PORT_KERNEL_BODIES:
+            if f"{body}<" in key or f"{body}(" in key:
+                ours[body] = ours.get(body, 0.0) + t / 1e3
+    log(json.dumps({"metric": metric, unit: n,
                     "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                     "device_idle_share": 1 - busy / wall_us,
-                    "top_kernels": [{"name": n[:90], "ms": t / 1e3,
+                    "port_kernels_ms": ours,
+                    "top_kernels": [{"name": k[:90], "ms": t / 1e3,
                                      "share": t / busy, "calls": c}
-                                    for n, t, c in kern[:14]], **tag}))
+                                    for k, t, c in kern[:16]], **tag}))
 
 
 def main() -> int:
@@ -337,12 +728,26 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    info = phase_device()
+    t_start = time.perf_counter()
+    with phase("device"):
+        info = phase_device()
     tag = {"gpu": info["gpu"], "nvidia_smi": info["nvidia_smi"]}
-    phase_build(["bsp_fused_attention"])
-    kin = phase_kernels(dev)
-    serve = phase_serving(dev)
-    kernels = phase_timings(kin, serve, tag)
+    with phase("build"):
+        phase_build(list(bsp.KERNELS))
+    with phase("kernels vs plain"):
+        kin = phase_kernels(dev)
+        tk = phase_train_kernels(dev)
+    with phase("serving"):
+        serve = phase_serving(dev)
+    with phase("training"):
+        tr = phase_train(dev)
+    with phase("timings"):
+        kernels = [phase_timings(kin, serve, tag)]
+        kernels += phase_train_kernel_timings(tk, tag)
+        phase_train_timings(tr, tag)
+    for k in kernels:
+        k["launches"] = tr["launches"][k["name"]]
+    log(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,26 @@
 """Batch pipeline: synthetic scenes -> padded static-shape node batches.
 
-Port of the serving part of ``mrp_gnn_tpu/data/pipeline.py``. Batches are
-flattened to the node axis ([V, H, W, 3], V = scenes * robots padded to
+Port of ``mrp_gnn_tpu/data/pipeline.py`` for serving and training. Batches
+are flattened to the node axis ([V, H, W, 3], V = scenes * robots padded to
 max_nodes) to match the GraphBatch layout.
 
 Each batch dict: images [V,H,W,3] f32, depth [V,H,W] f32, seg [V,H,W] i32
 (numpy arrays) and graph: a GraphBatch of CPU tensors. Static topology
 builds the graph once; dynamic topology (mobility > 0) rebuilds it per batch
 from the scenes' robot positions under pinned capacities.
+``make_train_iterator`` gives the endless shuffled training stream, filled
+ahead by a thread (``PrefetchIterator``) when ``cfg.prefetch > 0``.
 
-Not ported yet (ROADMAP.md, queue A item 9): augmentation, per-host
-``node_range`` sharding, prefetch threads, the grain loader, the on-disk
-dataset and the native renderer (``renderer="auto"`` resolves to numpy).
+Not ported yet: resuming the stream at a batch (``start_batch``, with
+checkpoints: ROADMAP.md, queue A item 8); augmentation, per-host
+``node_range`` sharding, the grain loader, the on-disk dataset and the
+native renderer (``renderer="auto"`` resolves to numpy; queue A item 9).
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
@@ -198,6 +204,87 @@ class BatchIterator:
                 "seg": _pad_nodes(seg, self.max_nodes),
                 "graph": graph,
             }
+
+    def repeat(self):
+        """Endless stream: one epoch after another, each in its own order."""
+        while True:
+            yield from self
+
+
+def _bounded_put(q: queue.Queue, stop: threading.Event, item) -> bool:
+    """Put that gives up once ``stop`` is set, so a producer thread never
+    stays blocked on a full queue after ``close()``."""
+    while True:
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            if stop.is_set():
+                return False
+
+
+class PrefetchIterator:
+    """Fills a bounded queue ``depth`` batches ahead of the consumer from a
+    daemon thread, so scene rendering and graph builds overlap the training
+    step. An exception in the producer is raised by the next ``next()``."""
+
+    def __init__(self, batch_iter: BatchIterator, depth: int = 2):
+        self._it = batch_iter
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._error: Exception | None = None
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _fill(self):
+        try:
+            for batch in self._it.repeat():
+                if self._stop.is_set() or not _bounded_put(
+                        self._q, self._stop, batch):
+                    return
+        except Exception as e:  # noqa: BLE001 (relayed to the consumer)
+            _bounded_put(self._q, self._stop, e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._error is not None:
+            raise self._error
+        item = self._q.get()
+        if isinstance(item, Exception):
+            self._error = item
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()
+        try:
+            self._q.get_nowait()  # unblock the producer if it is waiting
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)
+
+
+def make_train_iterator(cfg: DataConfig, start_batch: int = 0):
+    """Endless shuffled training stream; prefetched when cfg.prefetch > 0.
+
+    Only the builtin loader from the start of the stream is ported: the
+    grain loader (ROADMAP.md, queue A item 9) and ``start_batch`` resume
+    (item 8, with checkpoints) raise NotImplementedError.
+    """
+    if cfg.loader != "builtin":
+        raise NotImplementedError(
+            f"loader={cfg.loader!r} is not ported yet (ROADMAP.md, queue A "
+            "item 9); use loader='builtin'")
+    if start_batch:
+        raise NotImplementedError(
+            "resuming the stream at a batch comes with checkpoints "
+            "(ROADMAP.md, queue A item 8)")
+    it = make_dataset(cfg, "train")
+    if cfg.prefetch > 0:
+        return PrefetchIterator(it, cfg.prefetch)
+    return iter(it.repeat())
 
 
 def make_dataset(cfg: DataConfig, split: str = "train",

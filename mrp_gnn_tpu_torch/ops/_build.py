@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ops/_build/`` (git-ignored) and loaded with ``ctypes``. The library file
-name carries a hash of the source and flags, so an edited source is never
-served by a stale build. Nothing here runs at import time; a failed build
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is never served by a stale build. Nothing here runs at import time; a failed build
 raises, it never falls back to the plain version.
 """
 
@@ -41,7 +41,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,20 +1,26 @@
-"""One-pass fused graph attention: the port's counterpart of
-``mrp_gnn_tpu/ops/pallas_bsp.py`` for the serving path.
+"""Graph attention over ELL neighbour lists: the port's counterpart of
+``mrp_gnn_tpu/ops/pallas_bsp.py`` for the serving and training paths.
 
 ``bsp_attention_fused`` computes SDDMM + masked softmax + SpMM over a
-batch's ELL neighbour lists in one kernel
-(``csrc/bsp_fused_attention.cu``, replacing the TPU's ``_fused_kernel``).
-The CUDA kernel gathers source rows straight from ``ell_src``; the
-tile-pair plan only marks the batches it serves (``supports``), as in the
-JAX package.
+batch's ELL neighbour lists in one kernel (``csrc/bsp_fused_attention.cu``,
+replacing the TPU's ``_fused_kernel``), with a backward
+(:class:`FusedAttention`) that follows the JAX package's
+``_bsp_fused_bwd`` through three more kernels:
 
-``fused_attention`` is the kernel wrapper. For CPU tensors it runs the
-plain torch version (``fused_attention_reference``); for CUDA tensors it
-launches the kernel or raises, and counts each launch in
-``fused_attention.launches``.
+- ``sddmm`` (``csrc/bsp_sddmm.cu``; the TPU's ``_sddmm_kernel`` and, in
+  the dual form, ``_sddmm2_kernel``): edge dot products;
+- ``spmm`` (``csrc/bsp_spmm.cu``; ``_spmm_kernel``): weighted neighbour
+  sums;
+- ``spmm_t`` (``csrc/bsp_spmm_t.cu``; ``_spmm_t_kernel``): the transposed
+  sums, driven by a source-major view of the valid slots
+  (:func:`source_view`) so that they need no float atomics.
 
-Not ported yet: the backward (ROADMAP.md, queue B items 2-4) — the kernel
-serves inference only, and the wrapper refuses inputs that need a gradient.
+The CUDA kernels gather rows straight from ``ell_src``; the tile-pair plan
+only marks the batches they serve (``supports``), as in the JAX package.
+
+Each kernel has a wrapper and a plain torch version beside it. A wrapper
+runs the plain version for CPU tensors; for CUDA tensors it launches the
+kernel or raises, and counts each launch in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ import torch
 from mrp_gnn_tpu_torch.ops import _build
 
 _NEG = -1e30
-MAX_DEGREE = 128  # the kernel keeps a row's slots in shared memory
-MAX_DK = 256      # the kernel keeps a row's query in shared memory
+MAX_DEGREE = 128  # the kernels keep a row's slots in shared memory
+MAX_DK = 256      # the fused kernel keeps a row's query in shared memory
 _KERNEL = "bsp_fused_attention"
+KERNELS = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t")
+_VALUE_TYPES = (torch.float32, torch.bfloat16)
 
 
 def supports(graph) -> bool:
@@ -40,10 +48,23 @@ def supports(graph) -> bool:
             and graph.ell_src.shape[1] <= MAX_DEGREE)
 
 
+# --- plain torch versions ----------------------------------------------------
+
+
+def masked_softmax(logits: torch.Tensor, ell_mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over each row's valid slots, with the JAX package's guards:
+    the max is floored at _NEG / 2 and a row with no valid slot gives 0."""
+    x = torch.where(ell_mask, logits, _NEG)
+    m = torch.amax(x, dim=-1, keepdim=True)
+    e = torch.where(ell_mask, torch.exp(x - torch.clamp(m, min=_NEG / 2)), 0.0)
+    den = e.sum(-1, keepdim=True)
+    return torch.where(den > 0, e / torch.clamp(den, min=1e-30), 0.0)
+
+
 def fused_attention_reference(q_s: torch.Tensor, k: torch.Tensor,
                               values: torch.Tensor, ell_src: torch.Tensor,
                               ell_mask: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the kernel, on the kernel's inputs.
+    """Plain torch version of the fused kernel, on the kernel's inputs.
 
     q_s: f32 [V, dk], already scaled by 1/sqrt(dk); k: f32 [V, dk];
     values: [V, D]; ell_src int32 / ell_mask bool [V, deg]. Returns
@@ -51,64 +72,123 @@ def fused_attention_reference(q_s: torch.Tensor, k: torch.Tensor,
     """
     src = ell_src.long()
     logits = torch.einsum("vd,vjd->vj", q_s, k[src])
-    x = torch.where(ell_mask, logits, _NEG)
-    m = torch.amax(x, dim=-1, keepdim=True)
-    e = torch.where(ell_mask, torch.exp(x - torch.clamp(m, min=_NEG / 2)), 0.0)
-    den = e.sum(-1, keepdim=True)
-    alpha = torch.where(den > 0, e / torch.clamp(den, min=1e-30), 0.0)
+    alpha = masked_softmax(logits, ell_mask)
     out = torch.einsum("vj,vjd->vd", alpha, values[src].float())
     return out.to(values.dtype)
 
 
-def _check_cuda_inputs(q_s, k, values, ell_src, ell_mask) -> None:
-    dev = values.device
-    for name, t in (("q_s", q_s), ("k", k), ("ell_src", ell_src),
-                    ("ell_mask", ell_mask)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, values on {dev}")
-    if q_s.dtype != torch.float32 or k.dtype != torch.float32:
-        raise TypeError("q_s and k must be float32")
-    if values.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"values must be float32 or bfloat16, got {values.dtype}")
-    if ell_src.dtype != torch.int32 or ell_mask.dtype != torch.bool:
-        raise TypeError("ell_src must be int32 and ell_mask bool")
+def sddmm_reference(a: torch.Tensor, b: torch.Tensor, ell_src: torch.Tensor,
+                    ell_mask: torch.Tensor) -> torch.Tensor:
+    """out[v, j] = <a[v], b[ell_src[v, j]]> in f32; 0 on masked slots."""
+    out = torch.einsum("vd,vjd->vj", a.float(), b.float()[ell_src.long()])
+    return torch.where(ell_mask, out, 0.0)
+
+
+def spmm_reference(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
+                   ell_mask: torch.Tensor) -> torch.Tensor:
+    """out[v] = sum over valid j of w[v, j] * x[ell_src[v, j]], summed in
+    f32, in x's dtype."""
+    wm = torch.where(ell_mask, w.float(), 0.0)
+    out = torch.einsum("vj,vjd->vd", wm, x.float()[ell_src.long()])
+    return out.to(x.dtype)
+
+
+def spmm_t_reference(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
+                     ell_mask: torch.Tensor, num_rows: int,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """out[s] = sum over valid (v, j) with ell_src[v, j] = s of
+    w[v, j] * x[v]: [num_rows, D], summed in f32, in ``out_dtype``
+    (default x's dtype)."""
     V, deg = ell_src.shape
-    if (q_s.dim() != 2 or q_s.shape != k.shape or q_s.shape[0] != V
-            or values.dim() != 2 or values.shape[0] != V
-            or ell_mask.shape != ell_src.shape):
-        raise ValueError(
-            f"shape mismatch: q_s {tuple(q_s.shape)}, k {tuple(k.shape)}, "
-            f"values {tuple(values.shape)}, ell_src {tuple(ell_src.shape)}, "
-            f"ell_mask {tuple(ell_mask.shape)}")
-    if deg > MAX_DEGREE or q_s.shape[1] > MAX_DK:
-        raise ValueError(f"kernel takes deg <= {MAX_DEGREE} and dk <= "
-                         f"{MAX_DK}, got deg {deg}, dk {q_s.shape[1]}")
-    for name, t in (("q_s", q_s), ("k", k), ("values", values),
-                    ("ell_src", ell_src), ("ell_mask", ell_mask)):
+    rows = torch.arange(V, device=x.device)[:, None].expand(V, deg)[ell_mask]
+    contrib = w.float()[ell_mask][:, None] * x.float()[rows]
+    out = torch.zeros(num_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    out.index_add_(0, ell_src[ell_mask].long(), contrib)
+    return out.to(out_dtype or x.dtype)
+
+
+def source_view(ell_src: torch.Tensor, ell_mask: torch.Tensor,
+                num_rows: int) -> tuple:
+    """Source-major view of the valid slots, built on the tensors' device.
+
+    Returns (offsets int32 [num_rows + 1], slots int32 [V * deg]): the
+    valid slots naming source s are ``slots[offsets[s]:offsets[s + 1]]``,
+    each ``v * deg + j``, in (v, j) order (a stable sort). Entries past
+    ``offsets[-1]`` are the masked slots; the kernel never reads them.
+    """
+    key = torch.where(ell_mask, ell_src, num_rows).flatten()
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(num_rows + 1, device=key.device, dtype=key.dtype)
+    offsets = torch.searchsorted(sorted_key, bounds).to(torch.int32)
+    return offsets, order.to(torch.int32)
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _run(name: str, argtypes: list, *args) -> None:
+    """Call the C entry point ``name`` of ``csrc/<name>.cu`` (built at first
+    use) and raise if the launch was refused."""
+    fn = getattr(_build.load(name), name)  # ctypes keeps one object per name
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def _vec8(*tensors) -> bool:
+    """16-byte loads: every row a multiple of 8 elements, 16-byte aligned."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def _check_cuda(kernel: str, ell_src, ell_mask, **tensors) -> None:
+    """Device, layout and index checks shared by the wrappers."""
+    dev = ell_src.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"no {kernel} kernel for {dev}")
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, ell_src on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if any(t.requires_grad for t in (q_s, k, values)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the fused attention kernel has no backward yet (ROADMAP.md, "
-            "queue B items 2-4); run it under torch.no_grad()")
+    if ell_mask.device != dev:
+        raise ValueError(f"ell_mask is on {ell_mask.device}, ell_src on {dev}")
+    if ell_src.dtype != torch.int32 or ell_mask.dtype != torch.bool:
+        raise TypeError("ell_src must be int32 and ell_mask bool")
+    if ell_src.dim() != 2 or ell_mask.shape != ell_src.shape:
+        raise ValueError(f"ell_src {tuple(ell_src.shape)} and ell_mask "
+                         f"{tuple(ell_mask.shape)} must be one [V, deg] shape")
+    if not (ell_src.is_contiguous() and ell_mask.is_contiguous()):
+        raise ValueError("ell_src and ell_mask must be contiguous")
+    if ell_src.shape[1] > MAX_DEGREE:
+        raise ValueError(f"{kernel} takes deg <= {MAX_DEGREE}, got "
+                         f"{ell_src.shape[1]}")
 
 
-def _launch(lib, q_s, k, values, ell_src, ell_mask, out) -> int:
-    V, deg = ell_src.shape
-    D = values.shape[1]
-    bf16 = values.dtype == torch.bfloat16
-    per16 = 8 if bf16 else 4  # elements in a 16-byte load
-    vec = per16 if (D % per16 == 0 and values.data_ptr() % 16 == 0
-                    and out.data_ptr() % 16 == 0) else 1
-    fn = lib.bsp_fused_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn(q_s.data_ptr(), k.data_ptr(), values.data_ptr(),
-              ell_src.data_ptr(), ell_mask.data_ptr(), out.data_ptr(),
-              V, deg, q_s.shape[1], D, int(bf16), vec, values.device.index,
-              torch.cuda.current_stream(values.device).cuda_stream)
+def _check_cuda_inputs(q_s, k, values, ell_src, ell_mask) -> None:
+    if values.device.type != "cuda":
+        raise RuntimeError(f"no fused attention kernel for {values.device}")
+    _check_cuda(_KERNEL, ell_src, ell_mask, q_s=q_s, k=k, values=values)
+    if q_s.dtype != torch.float32 or k.dtype != torch.float32:
+        raise TypeError("q_s and k must be float32")
+    if values.dtype not in _VALUE_TYPES:
+        raise TypeError(f"values must be float32 or bfloat16, got {values.dtype}")
+    V = ell_src.shape[0]
+    if (q_s.dim() != 2 or q_s.shape != k.shape or q_s.shape[0] != V
+            or values.dim() != 2 or values.shape[0] != V):
+        raise ValueError(
+            f"shape mismatch: q_s {tuple(q_s.shape)}, k {tuple(k.shape)}, "
+            f"values {tuple(values.shape)}, ell_src {tuple(ell_src.shape)}")
+    if q_s.shape[1] > MAX_DK:
+        raise ValueError(f"kernel takes dk <= {MAX_DK}, got {q_s.shape[1]}")
 
 
 def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
@@ -118,24 +198,205 @@ def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
     the current stream (no synchronisation) or raise: on a failed build,
-    on inputs the kernel does not take, or on a refused launch.
+    on inputs the kernel does not take, or on a refused launch. It computes
+    no gradient itself: :class:`FusedAttention` carries the backward.
     """
     if values.device.type == "cpu":
         return fused_attention_reference(q_s, k, values, ell_src, ell_mask)
-    if values.device.type != "cuda":
-        raise RuntimeError(f"no fused attention kernel for {values.device}")
     _check_cuda_inputs(q_s, k, values, ell_src, ell_mask)
     out = torch.empty_like(values)
     if out.numel() == 0:
         return out
-    rc = _launch(_build.load(_KERNEL), q_s, k, values, ell_src, ell_mask, out)
-    if rc != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {rc}")
+    V, deg = ell_src.shape
+    bf16 = values.dtype == torch.bfloat16
+    per16 = 8 if bf16 else 4  # elements in a 16-byte load
+    vec = per16 if (values.shape[1] % per16 == 0 and values.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0) else 1
+    _run(_KERNEL, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+        q_s.data_ptr(), k.data_ptr(), values.data_ptr(), ell_src.data_ptr(),
+        ell_mask.data_ptr(), out.data_ptr(), V, deg, q_s.shape[1],
+        values.shape[1], int(bf16), vec, values.device.index, _stream(values))
     fused_attention.launches += 1
     return out
 
 
 fused_attention.launches = 0
+
+
+def _pair_flags(a: torch.Tensor, b: torch.Tensor) -> int:
+    """bsp_sddmm's operand flags: a bf16, b bf16, 16-byte loads."""
+    return (int(a.dtype == torch.bfloat16) | int(b.dtype == torch.bfloat16) << 1
+            | int(_vec8(a, b)) << 2)
+
+
+def _check_pair(a, b, V: int) -> None:
+    if a.dtype not in _VALUE_TYPES or b.dtype not in _VALUE_TYPES:
+        raise TypeError(f"operands must be float32 or bfloat16, got "
+                        f"{a.dtype} and {b.dtype}")
+    if (a.dim() != 2 or b.dim() != 2 or a.shape[0] != V
+            or a.shape[1] != b.shape[1] or a.shape[1] == 0):
+        raise ValueError(f"operands {tuple(a.shape)} and {tuple(b.shape)} do "
+                         f"not fit [V={V}, d] and [Vs, d] with d > 0")
+
+
+def sddmm(a1: torch.Tensor, b1: torch.Tensor, ell_src: torch.Tensor,
+          ell_mask: torch.Tensor, a2: torch.Tensor | None = None,
+          b2: torch.Tensor | None = None):
+    """Edge dot products, :func:`sddmm_reference` of (a1, b1) and, in the
+    dual form (a2 and b2 given), of (a2, b2), from one kernel launch.
+
+    Returns out1 [V, deg] f32, or (out1, out2) in the dual form.
+    """
+    dual = a2 is not None
+    if ell_src.device.type == "cpu":
+        out1 = sddmm_reference(a1, b1, ell_src, ell_mask)
+        return (out1, sddmm_reference(a2, b2, ell_src, ell_mask)) if dual else out1
+    pairs = dict(a1=a1, b1=b1, **(dict(a2=a2, b2=b2) if dual else {}))
+    _check_cuda("bsp_sddmm", ell_src, ell_mask, **pairs)
+    V, deg = ell_src.shape
+    _check_pair(a1, b1, V)
+    if dual:
+        _check_pair(a2, b2, V)
+    out1 = torch.empty(V, deg, dtype=torch.float32, device=a1.device)
+    out2 = torch.empty_like(out1) if dual else None
+    if out1.numel():
+        _run("bsp_sddmm", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+             a1.data_ptr(), b1.data_ptr(), a1.shape[1], _pair_flags(a1, b1),
+             a2.data_ptr() if dual else None, b2.data_ptr() if dual else None,
+             a2.shape[1] if dual else 0, _pair_flags(a2, b2) if dual else 0,
+             ell_src.data_ptr(), ell_mask.data_ptr(), out1.data_ptr(),
+             out2.data_ptr() if dual else None, V, deg, a1.device.index,
+             _stream(a1))
+        sddmm.launches += 1
+    return (out1, out2) if dual else out1
+
+
+sddmm.launches = 0
+
+
+def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
+         ell_mask: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper, same contract as :func:`spmm_reference`."""
+    if x.device.type == "cpu":
+        return spmm_reference(w, x, ell_src, ell_mask)
+    _check_cuda("bsp_spmm", ell_src, ell_mask, w=w, x=x)
+    if w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES:
+        raise TypeError(f"w must be float32 and x float32 or bfloat16, got "
+                        f"{w.dtype} and {x.dtype}")
+    V, deg = ell_src.shape
+    if w.shape != ell_src.shape or x.dim() != 2:
+        raise ValueError(f"w {tuple(w.shape)} must match ell_src "
+                         f"{tuple(ell_src.shape)} and x be [Vs, D]")
+    out = torch.empty(V, x.shape[1], dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _run("bsp_spmm", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+         + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+         w.data_ptr(), x.data_ptr(), ell_src.data_ptr(), ell_mask.data_ptr(),
+         out.data_ptr(), V, deg, x.shape[1], int(x.dtype == torch.bfloat16),
+         8 if _vec8(x, out) else 1, x.device.index, _stream(x))
+    spmm.launches += 1
+    return out
+
+
+spmm.launches = 0
+
+
+def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
+           ell_mask: torch.Tensor, num_rows: int,
+           out_dtype: torch.dtype | None = None,
+           view: tuple | None = None) -> torch.Tensor:
+    """Kernel wrapper, same contract as :func:`spmm_t_reference`.
+
+    ``view``: the batch's :func:`source_view`, built here when not given
+    (the backward builds it once for its two calls).
+    """
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return spmm_t_reference(w, x, ell_src, ell_mask, num_rows, out_dtype)
+    _check_cuda("bsp_spmm_t", ell_src, ell_mask, w=w, x=x)
+    if (w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES
+            or out_dtype not in _VALUE_TYPES):
+        raise TypeError(f"w must be float32, x and out float32 or bfloat16, "
+                        f"got {w.dtype}, {x.dtype} and {out_dtype}")
+    V, deg = ell_src.shape
+    if w.shape != ell_src.shape or x.dim() != 2 or x.shape[0] != V:
+        raise ValueError(f"w {tuple(w.shape)} must match ell_src "
+                         f"{tuple(ell_src.shape)} and x be [V, D]")
+    if V * deg >= 2 ** 31:
+        raise ValueError("the slot index v * deg + j must fit in int32")
+    out = torch.empty(num_rows, x.shape[1], dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if V * deg == 0:
+        return out.zero_()
+    offsets, slots = view if view is not None else source_view(
+        ell_src, ell_mask, num_rows)
+    if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
+        raise ValueError("view does not fit this batch and num_rows")
+    _run("bsp_spmm_t", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+         w.data_ptr(), x.data_ptr(), offsets.data_ptr(), slots.data_ptr(),
+         out.data_ptr(), num_rows, deg, x.shape[1],
+         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+         8 if _vec8(x, out) else 1, x.device.index, _stream(x))
+    spmm_t.launches += 1
+    return out
+
+
+spmm_t.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in (fused_attention, sddmm, spmm, spmm_t):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launch count of each kernel, by its source name."""
+    return dict(zip(KERNELS, (fused_attention.launches, sddmm.launches,
+                              spmm.launches, spmm_t.launches)))
+
+
+# --- autograd ------------------------------------------------------------------
+
+
+def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g) -> tuple:
+    """(dq_s, dk, dvalues) of :func:`fused_attention` for the output
+    cotangent ``g``: the steps of the JAX package's ``_bsp_fused_bwd``
+    (``pallas_bsp.py:865-890``), each sparse product a kernel on CUDA."""
+    g = g.contiguous()  # may arrive as a permuted view (models/fusion.py)
+    logits, dalpha = sddmm(q_s, k, ell_src, ell_mask, g, values)
+    alpha = masked_softmax(logits, ell_mask)
+    view = (source_view(ell_src, ell_mask, values.shape[0])
+            if values.is_cuda else None)
+    dvalues = spmm_t(alpha, g, ell_src, ell_mask, values.shape[0],
+                     values.dtype, view)
+    dlog = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
+    dlog = torch.where(ell_mask, dlog, 0.0)
+    dq = spmm(dlog, k, ell_src, ell_mask)
+    dk = spmm_t(dlog, q_s, ell_src, ell_mask, k.shape[0], k.dtype, view)
+    return dq.to(q_s.dtype), dk, dvalues
+
+
+class FusedAttention(torch.autograd.Function):
+    """:func:`fused_attention` with its backward, the counterpart of the
+    JAX package's ``_bsp_fused`` custom vjp. The forward saves only its
+    inputs; the backward recomputes the logits."""
+
+    @staticmethod
+    def forward(ctx, q_s, k, values, ell_src, ell_mask):
+        ctx.save_for_backward(q_s, k, values, ell_src, ell_mask)
+        return fused_attention(q_s, k, values, ell_src, ell_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*fused_attention_backward(*ctx.saved_tensors, g), None, None)
 
 
 def _scaled(q: torch.Tensor, k: torch.Tensor):
@@ -147,18 +408,20 @@ def _scaled(q: torch.Tensor, k: torch.Tensor):
 
 def bsp_attention_fused(q: torch.Tensor, k: torch.Tensor,
                         values: torch.Tensor, graph) -> torch.Tensor:
-    """One-pass fused edge attention over the batch's ELL lists.
+    """One-pass fused edge attention over the batch's ELL lists, with a
+    gradient for q, k and values.
 
     Same semantics as the plain composition ell_sddmm / sqrt(dk) ->
     ell_softmax -> ell_aggregate. q/k: [V, dk]; values [V, D] f32 or bf16.
     """
     q_s, kf = _scaled(q, k)
-    return fused_attention(q_s, kf, values, graph.ell_src, graph.ell_mask)
+    return FusedAttention.apply(q_s, kf, values, graph.ell_src, graph.ell_mask)
 
 
 def bsp_attention_fused_reference(q: torch.Tensor, k: torch.Tensor,
                                   values: torch.Tensor, graph) -> torch.Tensor:
-    """Plain torch version of :func:`bsp_attention_fused`, on any device."""
+    """Plain torch version of :func:`bsp_attention_fused`, on any device;
+    torch's autograd differentiates it."""
     q_s, kf = _scaled(q, k)
     return fused_attention_reference(q_s, kf, values, graph.ell_src,
                                      graph.ell_mask)

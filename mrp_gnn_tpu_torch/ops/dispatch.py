@@ -6,12 +6,13 @@ kernel backend, which routes as the JAX Pallas backend does:
 
 - block-diagonal batches -> plain torch (dense einsums; the JAX package
   routes this league to XLA as well);
-- ELL with a tile-pair plan -> the fused attention kernel (``ops/bsp.py``);
+- ELL with a tile-pair plan -> the fused attention kernel (``ops/bsp.py``),
+  whose backward runs the SDDMM, SpMM and transposed-SpMM kernels;
 - ELL width > 128 with a row-expanded plan -> not ported (raises);
 - ELL without a plan -> the plain ELL composition;
 - mean and max aggregation -> plain torch on CPU tensors; on CUDA tensors
-  they raise until their kernels are ported, because the JAX Pallas
-  backend runs kernels there.
+  they raise until they are wired to kernels (ROADMAP.md, queue B items 4
+  and 6), because the JAX Pallas backend runs kernels there.
 
 ``resolve_impl("auto", device)`` gives ``"pallas"`` for CUDA and ``"xla"``
 otherwise; on CPU tensors the kernel wrappers run their plain versions.

@@ -1,0 +1,332 @@
+"""Training: the train step, the optimizer and the loop (port of
+``mrp_gnn_tpu/train.py``).
+
+One step runs the model forward, ``total_loss`` and the backward, then the
+optimizer of the JAX package: ``optax.chain(clip_by_global_norm,
+adamw(warmup_cosine_decay_schedule))``, written out here update for update
+(:class:`AdamW`). On the CUDA card, with ``ops_impl`` "auto" or "pallas",
+the graph attention and its backward run the hand-written kernels of
+``ops/bsp.py``.
+
+CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20
+
+The loop runs on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, ``--device cpu``). Not ported yet, each raising
+NotImplementedError that names its ROADMAP.md item: checkpoints and resume
+(``checkpoint_dir``, queue A item 8), periodic eval (``eval_every``, A8),
+TensorBoard summaries (``tensorboard_dir``, A8), mesh axes > 1 (A11) and
+the grain loader (A9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
+from mrp_gnn_tpu_torch.losses import total_loss
+from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
+from mrp_gnn_tpu_torch.utils.platform import resolve_device
+
+
+def warmup_cosine_lr(cfg: ExperimentConfig, count: int) -> float:
+    """optax.warmup_cosine_decay_schedule(0, lr, warmup, decay) at update
+    ``count`` (0-based): linear from 0, so the first update has lr 0, then
+    cosine decay to 0 at ``decay_steps`` = max(steps, warmup + 1)."""
+    tr = cfg.train
+    peak, warmup = tr.learning_rate, tr.warmup_steps
+    decay = max(tr.steps, warmup + 1) - warmup
+    if count < warmup:
+        return peak - peak * (1.0 - count / warmup)
+    t = min(count - warmup, decay)
+    return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
+
+
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which the JAX package uses
+
+
+class AdamW:
+    """Global-norm clipping, then AdamW, as optax's
+    ``chain(clip_by_global_norm(max_norm), adamw(schedule,
+    weight_decay=wd))``:
+
+    - gradients are clipped as ``g / ||g|| * max_norm`` when ||g|| >=
+      max_norm (no epsilon added to the norm);
+    - eps is added outside the square root of the bias-corrected second
+      moment;
+    - the weight decay is decoupled and applies to every parameter;
+    - update k (0-based) takes the schedule's value at k, so the first
+      update has lr 0 under the warmup schedule.
+
+    Moments live beside the parameters (same device); updates are in place.
+    """
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 max_norm: float, weight_decay: float):
+        self.params = list(params)
+        self.schedule = schedule
+        self.max_norm = max_norm
+        self.weight_decay = weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> torch.Tensor:
+        """Apply one update from ``grads`` (one per parameter, in order);
+        returns the global norm of the gradients before clipping."""
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        clip = norm < self.max_norm
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1 = 1.0 - B1 ** self.count
+        c2 = 1.0 - B2 ** self.count
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            g = torch.where(clip, g, g / norm * self.max_norm)
+            mu.copy_((1.0 - B1) * g + B1 * mu)
+            nu.copy_((1.0 - B2) * g * g + B2 * nu)
+            update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+            p.add_(-lr * (update + self.weight_decay * p))
+        return norm
+
+
+def make_optimizer(cfg: ExperimentConfig, params) -> AdamW:
+    return AdamW(params, lambda count: warmup_cosine_lr(cfg, count),
+                 max_norm=cfg.train.grad_clip_norm,
+                 weight_decay=cfg.train.weight_decay)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a run carries from step to step (the model's parameters are
+    updated in place)."""
+    model: MultiRobotPerceptionNet
+    optimizer: AdamW
+    step: int = 0
+    best_rmse: float = math.inf
+    best_step: int = -1
+
+
+def create_train_state(cfg: ExperimentConfig, device) -> TrainState:
+    """Model with seeded random weights (``cfg.train.seed``) on ``device``,
+    and its optimizer."""
+    model = MultiRobotPerceptionNet(
+        cfg.model, ops_impl=cfg.parallel.ops_impl,
+        generator=torch.Generator().manual_seed(cfg.train.seed)).to(device)
+    return TrainState(model, make_optimizer(cfg, model.parameters()))
+
+
+def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
+                    optimizer: AdamW) -> Callable:
+    """``step(state, images, depth, seg, graph) -> (state, terms)``.
+
+    With ``grad_accum_steps`` > 1, images/depth/seg carry a leading
+    [accum] microbatch axis and ``graph`` is one GraphBatch (static
+    topology) or a sequence of one per microbatch (dynamic topology); the
+    gradients and terms are averaged over the microbatches before one
+    update. ``terms`` are device tensors: the loss terms, and ``grad_norm``
+    before clipping. The step does not synchronise with the device.
+    """
+    accum = max(cfg.train.grad_accum_steps, 1)
+    tr = cfg.train
+    ops_impl = cfg.parallel.ops_impl
+    params = list(model.parameters())
+
+    def forward(images, graph):
+        return model(images, graph, ops_impl=ops_impl)
+
+    def grads_of(images, depth, seg, graph):
+        if tr.remat:
+            # Recompute the forward in the backward instead of holding
+            # every feature map (the JAX package's jax.checkpoint).
+            out = checkpoint(forward, images, graph, use_reentrant=False)
+        else:
+            out = forward(images, graph)
+        loss, terms = total_loss(out, {"depth": depth, "seg": seg},
+                                 graph.node_mask, tr.depth_loss_weight,
+                                 tr.seg_loss_weight, depth_loss=tr.depth_loss)
+        grads = torch.autograd.grad(loss, params)
+        return grads, {k: v.detach() for k, v in terms.items()}
+
+    def train_step(state: TrainState, images, depth, seg, graph):
+        model.train()
+        if accum == 1:
+            grads, terms = grads_of(images, depth, seg, graph)
+        else:
+            graphs = (list(graph) if isinstance(graph, (list, tuple))
+                      else [graph] * accum)
+            grads, terms = grads_of(images[0], depth[0], seg[0], graphs[0])
+            for i in range(1, accum):
+                g, t = grads_of(images[i], depth[i], seg[i], graphs[i])
+                grads = [a + b for a, b in zip(grads, g)]
+                terms = {k: terms[k] + t[k] for k in terms}
+            grads = [g / accum for g in grads]
+            terms = {k: v / accum for k, v in terms.items()}
+        terms["grad_norm"] = optimizer.step(grads)
+        state.step += 1
+        return state, terms
+
+    return train_step
+
+
+def _check_ported(cfg: ExperimentConfig) -> None:
+    tr, pc = cfg.train, cfg.parallel
+    todo = [(tr.checkpoint_dir, "checkpoint_dir (checkpoints and resume)", "A8"),
+            (tr.eval_every > 0, "eval_every > 0 (periodic eval)", "A8"),
+            (tr.tensorboard_dir, "tensorboard_dir (summaries)", "A8"),
+            (pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1,
+             "mesh axes > 1 (data, graph and model parallelism)", "A11"),
+            (cfg.data.loader != "builtin", f"loader={cfg.data.loader!r}", "A9")]
+    for on, what, item in todo:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md, queue A item "
+                f"{item[1:]})")
+
+
+def _microbatches(it: Iterator[dict], accum: int) -> Iterator[dict]:
+    """Groups ``accum`` consecutive batches into one stacked step input;
+    the graph stays one object when the topology is static, else becomes a
+    list of one graph per microbatch."""
+    while True:
+        try:
+            group = [next(it) for _ in range(accum)]
+        except StopIteration:
+            return
+        out = {k: np.stack([b[k] for b in group])
+               for k in ("images", "depth", "seg")}
+        graphs = [b["graph"] for b in group]
+        out["graph"] = (graphs[0] if all(g is graphs[0] for g in graphs)
+                        else graphs)
+        yield out
+
+
+def batch_to_device(batch: dict, device) -> tuple:
+    """(images, depth, seg, graph) of a pipeline batch on ``device``."""
+    arrays = [torch.from_numpy(np.asarray(batch[k])).to(device)
+              for k in ("images", "depth", "seg")]
+    g = batch["graph"]
+    graph = ([x.to(device) for x in g] if isinstance(g, (list, tuple))
+             else g.to(device))
+    return (*arrays, graph)
+
+
+def _counts(graph, accum: int) -> tuple:
+    """Views and valid edges per step (summed over microbatches)."""
+    graphs = graph if isinstance(graph, (list, tuple)) else [graph] * accum
+    return (sum(int(g.n_nodes) for g in graphs),
+            sum(int(g.n_edges) for g in graphs))
+
+
+def train(cfg: ExperimentConfig, num_steps: int | None = None,
+          log_fn: Callable[[dict], None] | None = None,
+          data_iter: Iterator[dict] | None = None, device=None) -> tuple:
+    """Run training; returns (final TrainState, list of logged records).
+
+    Runs on the CUDA card unless ``device`` says otherwise (no card: it
+    raises). Each record carries ``step``, the loss terms, ``grad_norm``,
+    ``wall_s``, ``step_time_s`` (host clock between log points, the device
+    synchronised by reading the terms, the next batch's fetch included),
+    ``views_per_s`` and ``edges_per_s``. A non-finite logged loss raises
+    FloatingPointError when ``halt_on_nonfinite`` is set.
+    """
+    _check_ported(cfg)
+    device = resolve_device(device)
+    steps = num_steps if num_steps is not None else cfg.train.steps
+    accum = max(cfg.train.grad_accum_steps, 1)
+    own = data_iter is None
+    if own:
+        from mrp_gnn_tpu_torch.data.pipeline import make_train_iterator
+        base = make_train_iterator(cfg.data)
+    else:
+        base = data_iter
+    it = _microbatches(base, accum) if accum > 1 else base
+    records = []
+    try:
+        batch = next(it)
+        state = create_train_state(cfg, device)
+        step_fn = make_train_step(cfg, state.model, state.optimizer)
+        n_nodes, n_edges = _counts(batch["graph"], accum)
+        t0 = time.perf_counter()
+        t_last, step_last = t0, 0
+        for i in range(steps):
+            state, terms = step_fn(state, *batch_to_device(batch, device))
+            if (i + 1) % cfg.train.log_every == 0 or i == steps - 1:
+                terms = {k: float(v) for k, v in terms.items()}
+                now = time.perf_counter()
+                dt = (now - t_last) / max(i + 1 - step_last, 1)
+                t_last, step_last = now, i + 1
+                rec = {"step": i + 1, **terms, "wall_s": now - t0,
+                       "step_time_s": dt, "views_per_s": n_nodes / dt,
+                       "edges_per_s": n_edges / dt}
+                records.append(rec)
+                if log_fn:
+                    log_fn(rec)
+                if cfg.train.halt_on_nonfinite and not math.isfinite(rec["total"]):
+                    raise FloatingPointError(
+                        f"non-finite loss {rec['total']} at step {i + 1}")
+            if i + 1 < steps:
+                batch = next(it)
+    finally:
+        if own and hasattr(base, "close"):
+            base.close()
+    return state, records
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", required=True)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--depth_loss", default=None, choices=["l1", "berhu", "silog"])
+    p.add_argument("--train_scenes", type=int, default=None)
+    p.add_argument("--grad_accum", type=int, default=None)
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    args = p.parse_args(argv)
+
+    cfg = get_config(args.config)
+    tr = cfg.train
+    if args.lr is not None:
+        tr = dataclasses.replace(tr, learning_rate=args.lr)
+    if args.log_every is not None:
+        tr = dataclasses.replace(tr, log_every=args.log_every)
+    if args.depth_loss is not None:
+        tr = dataclasses.replace(tr, depth_loss=args.depth_loss)
+    if args.steps is not None:
+        tr = dataclasses.replace(tr, steps=args.steps)
+    if args.grad_accum is not None:
+        tr = dataclasses.replace(tr, grad_accum_steps=args.grad_accum)
+    if args.remat:
+        tr = dataclasses.replace(tr, remat=True)
+    cfg = cfg.replace(train=tr)
+    if args.train_scenes is not None:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, num_train_scenes=args.train_scenes))
+    if args.dtype is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    dtype=args.dtype))
+    device = resolve_device(args.device)
+    print(f"[train] config={cfg.name} steps={cfg.train.steps} "
+          f"device={device}", flush=True)
+    _, records = train(cfg, log_fn=lambda r: print(json.dumps(r), flush=True),
+                       device=device)
+    losses = [r["total"] for r in records if "total" in r]
+    if losses:
+        print(f"[train] final loss {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

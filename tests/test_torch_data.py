@@ -69,3 +69,47 @@ def test_pad_nodes_matches_jax():
     a = np.arange(12, dtype=np.float32).reshape(3, 4)
     assert np.array_equal(tp._pad_nodes(a, 5), jp._pad_nodes(a, 5))
     assert tp._pad_nodes(a, 2) is a
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_train_iterator_matches_jax(prefetch):
+    """The endless training stream crosses an epoch boundary (3 batches of
+    2 scenes per epoch of 6) in the same order as the JAX stream, with and
+    without the prefetch thread."""
+    jd, td = _cfgs("dynamic_swarm", prefetch=prefetch, scenes_per_batch=2)
+    jit, tit = jp.make_train_iterator(jd), tp.make_train_iterator(td)
+    try:
+        for _ in range(4):
+            a, b = next(tit), next(jit)
+            for key in ("images", "depth", "seg"):
+                assert np.array_equal(a[key], b[key]), key
+            assert_graph_equal(a["graph"], b["graph"])
+    finally:
+        for it in (jit, tit):
+            if hasattr(it, "close"):
+                it.close()
+
+
+def test_train_iterator_refuses_what_is_not_ported():
+    _, td = _cfgs("dynamic_swarm")
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        tp.make_train_iterator(dataclasses.replace(td, loader="grain"))
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        tp.make_train_iterator(td, start_batch=3)
+
+
+def test_prefetch_relays_a_producer_error():
+    _, td = _cfgs("two_robot_mean", prefetch=1)
+
+    class Broken(tp.BatchIterator):
+        def __iter__(self):
+            raise ValueError("renderer failed")
+            yield
+
+    it = tp.PrefetchIterator(Broken(tp.SceneDataset(td, "train"), 2))
+    try:
+        for _ in range(2):  # raised again, never a hang
+            with pytest.raises(ValueError, match="renderer failed"):
+                next(it)
+    finally:
+        it.close()

@@ -183,6 +183,163 @@ def test_broken_build_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def _plan(jgb):
+    return (jgb.bsp_pair_dst, jgb.bsp_pair_src, jgb.bsp_pair_first,
+            jgb.bsp_pair_last)
+
+
+def _plan_t(jgb):
+    return (jgb.bsp_pair_dst_t, jgb.bsp_pair_src_t, jgb.bsp_pair_first_t,
+            jgb.bsp_pair_last_t)
+
+
+def _slot_weights(tgb, seed):
+    """Random [V, deg] f32 weights, 0 on masked slots (as the JAX kernels,
+    which do not read the mask, get them from a masked softmax)."""
+    (w,) = _rand(tgb.max_nodes, tgb.ell_src.shape[1], seed=seed)
+    return np.where(tgb.ell_mask.numpy(), w, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "bfloat16")])
+def test_sddmm_matches_pallas_interpret(dtypes):
+    """Single form against _sddmm_forward, on valid slots; masked slots
+    are 0 in the port. Mixed f32 x bf16 as the backward's g x values."""
+    jgb, tgb = _kernel_graphs(16)
+    a, b = _rand(jgb.max_nodes, 256, 256, seed=8)
+    ja, jb = (jnp.asarray(x, dt) for x, dt in zip((a, b), dtypes))
+    want = np.asarray(JB._sddmm_forward(ja, jb, jgb.ell_src, *_plan(jgb),
+                                        jgb.bsp_tile, True))
+    ta, tb = (torch.from_numpy(x).to(getattr(torch, dt))
+              for x, dt in zip((a, b), dtypes))
+    got = bsp.sddmm(ta, tb, tgb.ell_src, tgb.ell_mask)
+    assert got.dtype == torch.float32
+    mask = tgb.ell_mask.numpy()
+    # bf16 products are exact in f32 on both sides: f32 tolerance holds
+    np.testing.assert_allclose(got.numpy()[mask], want[mask], rtol=1e-5,
+                               atol=1e-4)
+    assert bool((got[~tgb.ell_mask] == 0).all())
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+def test_dual_sddmm_matches_pallas_interpret(tile):
+    """Dual form against _sddmm2_forward (its kernel runs at this width:
+    the combined blocks pass its VMEM gate), on valid slots."""
+    jgb, tgb = _kernel_graphs(tile)
+    q, k, g, v = _rand(jgb.max_nodes, 16, 16, 256, 256, seed=9)
+    w1, w2 = JB._sddmm2_forward(q, k, g, jnp.asarray(v, jnp.bfloat16),
+                                jgb.ell_src, *_plan(jgb), tile, True)
+    got1, got2 = bsp.sddmm(*_t(q, k), tgb.ell_src, tgb.ell_mask,
+                           torch.from_numpy(g),
+                           torch.from_numpy(v).to(torch.bfloat16))
+    mask = tgb.ell_mask.numpy()
+    _close(got1[tgb.ell_mask], np.asarray(w1)[mask])
+    np.testing.assert_allclose(got2.numpy()[mask], np.asarray(w2)[mask],
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_matches_pallas_interpret(dtype):
+    jgb, tgb = _kernel_graphs(16)
+    w = _slot_weights(tgb, 10)
+    (x,) = _rand(jgb.max_nodes, 256, seed=11)
+    want = JB._spmm_forward(w, jnp.asarray(x, dtype), jgb.ell_src,
+                            *_plan(jgb), jgb.bsp_tile, True)
+    got = bsp.spmm(torch.from_numpy(w), torch.from_numpy(x).to(
+        getattr(torch, dtype)), tgb.ell_src, tgb.ell_mask)
+    assert got.dtype == getattr(torch, dtype)
+    # bf16: the TPU kernel rounds the weights to bf16 before its product
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    _close(got.float(), np.asarray(want, np.float32), tol)
+    empty = ~tgb.ell_mask.any(dim=1)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_t_matches_pallas_interpret(dtype):
+    """Transposed sum against _spmm_t_forward over the source-major plan,
+    into an output of another type (the backward's dvalues)."""
+    jgb, tgb = _kernel_graphs(16)
+    w = _slot_weights(tgb, 12)
+    (x,) = _rand(jgb.max_nodes, 256, seed=13)
+    V = jgb.max_nodes
+    want = JB._spmm_t_forward(w, x, jgb.ell_src, *_plan_t(jgb), jgb.bsp_tile,
+                              True, out_dtype=jnp.dtype(dtype), out_rows=V)
+    got = bsp.spmm_t(torch.from_numpy(w), torch.from_numpy(x), tgb.ell_src,
+                     tgb.ell_mask, V, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (V, 256)
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    _close(got.float(), np.asarray(want, np.float32), tol)
+    unnamed = torch.ones(V, dtype=torch.bool)
+    unnamed[tgb.ell_src[tgb.ell_mask].long()] = False
+    assert unnamed.any() and bool((got[unnamed] == 0).all())
+
+
+def test_source_view_drives_the_transposed_sum():
+    """The kernel's source-major view, walked as the kernel walks it, gives
+    the plain transposed sum; within a source the slots keep (v, j) order."""
+    _, tgb = _kernel_graphs(16)
+    V, deg = tgb.ell_src.shape
+    w = torch.from_numpy(_slot_weights(tgb, 14))
+    (x,) = _t(*_rand(V, 24, seed=15))
+    offsets, slots = bsp.source_view(tgb.ell_src, tgb.ell_mask, V)
+    assert offsets.dtype == slots.dtype == torch.int32
+    assert int(offsets[-1]) == int(tgb.ell_mask.sum())
+    out = torch.zeros(V, 24)
+    for s in range(V):
+        run = slots[offsets[s]:offsets[s + 1]].long()
+        assert bool((run[1:] > run[:-1]).all())
+        assert bool((tgb.ell_src.flatten()[run] == s).all())
+        for slot in run.tolist():
+            out[s] += w.flatten()[slot] * x[slot // deg]
+    _close(out, bsp.spmm_t_reference(w, x, tgb.ell_src, tgb.ell_mask,
+                                     V).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_grads_match_jax(dtype):
+    """FusedAttention's backward (on CPU: the kernels' plain versions)
+    against jax.grad of the Pallas bsp_attention_fused in interpret mode,
+    whose custom vjp runs _sddmm2, _spmm_t and _spmm. Tolerance bf16 2e-2:
+    the cotangent and values are bf16 and the TPU kernels round their
+    weights to bf16 before the products; the port sums in f32."""
+    jgb, tgb = _kernel_graphs(16)
+    V = jgb.max_nodes
+    q, k, v, ct = _rand(V, 16, 16, 256, 256, seed=16)
+
+    def f(q, k, v):
+        out = JB.bsp_attention_fused(q, k, v, jgb).astype(jnp.float32)
+        return jnp.sum(out * ct)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, jnp.asarray(v, dtype))
+    qt, kt = (t.requires_grad_() for t in _t(q, k))
+    vt = torch.from_numpy(v).to(getattr(torch, dtype)).requires_grad_()
+    (bsp.bsp_attention_fused(qt, kt, vt, tgb).float()
+     * torch.from_numpy(ct)).sum().backward()
+    assert vt.grad.dtype == vt.dtype
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for got, w in zip((qt.grad, kt.grad, vt.grad), want):
+        _close(got.float(), np.asarray(w, np.float32), tol)
+
+
+def test_fused_attention_grads_match_autograd_of_plain():
+    """The Function's gradients equal torch autograd through the plain
+    version, with a non-contiguous cotangent (as models/fusion.py gives)."""
+    _, tgb = _kernel_graphs(8)
+    q, k, v = (t.requires_grad_() for t in _t(*_rand(tgb.max_nodes, 8, 8, 40,
+                                                       seed=17)))
+    (ct,) = _t(*_rand(40, tgb.max_nodes, seed=18))
+    grads = []
+    for fn in (bsp.bsp_attention_fused, bsp.bsp_attention_fused_reference):
+        (fn(q, k, v, tgb) * ct.t()).sum().backward()
+        grads.append([t.grad.clone() for t in (q, k, v)])
+        for t in (q, k, v):
+            t.grad = None
+    for got, want in zip(*grads):
+        _close(got, want.numpy())
+
+
 def test_dispatch_routing():
     assert dispatch.resolve_impl("auto", "cpu") == "xla"
     assert dispatch.resolve_impl("auto", torch.device("cuda", 0)) == "pallas"
