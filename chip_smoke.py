@@ -3,10 +3,20 @@ check them.
 
     python3 chip_smoke.py
 
+Four paths through the fusion layer, each at the full ``dynamic_swarm``
+width (64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32,
+numpy renderer, random seeded weights):
+
+- attention: the preset itself (8 scenes x 32 drifting robots, a new radius
+  graph per batch, ELL width 32 with a tile-pair plan);
+- hideg attention: 2 fully connected scenes of 193 robots in 512 node
+  slots (in-degree 192, a row-expanded plan of 2 rows x 96);
+- mean and max: the preset with ``model.fusion`` "mean" and "max".
+
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: every CUDA kernel of both paths, compiled with nvcc for sm_90a
+2. build: every CUDA kernel of the paths, compiled with nvcc for sm_90a
    (one nvcc per source, all started together);
 3. each kernel against its plain torch version on the card: the fused
    attention on the first ``dynamic_swarm`` eval batch (f32 and bf16
@@ -15,21 +25,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16 values); all of them on a crafted graph with empty rows,
    duplicate edges, a degree-100 row and padded nodes at D 1030 (scalar
    path) and 4096; the transposed SpMM twice, bit for bit; the fused
-   attention's gradients against autograd through its plain version;
-4. serving: ``dynamic_swarm`` at full width (64x64 images, encoder
-   32/64/128, 8 scenes x 32 robots, 6 classes, numpy renderer) with random
-   seeded weights; three eval batches through ``Predictor``, checked for
-   range, for one kernel launch per fusion layer and head per request, and
-   against the same Predictor with the plain ops;
-5. training: the same model, seeded, ``ops_impl="auto"``, three steps of
-   ``train.make_train_step`` on the first three train batches, checked for
-   finite losses and grad norms, for the launches of every kernel per step,
-   and against the same three steps with the plain ops on the card;
-6. timings with CUDA events (medians): each kernel beside its bound, its
-   plain version and a library yardstick; the Predictor's device-side batch
-   latency and whole-request latency; the train step's device time with
-   the kernels and with the plain ops, one whole step through ``train()``
-   (host clock, data included), peak memory, and profiler breakdowns of
+   attention's gradients against autograd through its plain version; the
+   parts kernel at the hideg shapes and the masked max at the preset's, and
+   both on a crafted graph with a degree-200 row (f32 and bf16; the max bit
+   for bit, NaN in giving NaN out), with the gradients of their Functions;
+4. serving: for each path, three eval batches through ``Predictor``,
+   checked for range, for the kernel launches of each request, and against
+   the same Predictor with the plain ops;
+5. training: for each path, three steps of ``train.make_train_step`` on the
+   first three train batches, checked for finite losses and grad norms, for
+   the launches of every kernel per step, and against the same three steps
+   with the plain ops on the card;
+6. timings (medians): each kernel beside its bound, its plain version and
+   a library yardstick; the Predictor's device-side batch latency and
+   whole-request latency; the train step's device time with the kernels
+   and with the plain ops, one whole step through ``train()`` (host clock,
+   data included; attention path), peak memory, and profiler breakdowns of
    device time by kernel.
 
 The line before the last is a JSON object listing every kernel; the last
@@ -57,7 +68,7 @@ from mrp_gnn_tpu_torch.config import get_config
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
 from mrp_gnn_tpu_torch.graph import build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
-from mrp_gnn_tpu_torch.ops import _build, bsp
+from mrp_gnn_tpu_torch.ops import _build, bsp, ell
 from mrp_gnn_tpu_torch.serving import Predictor
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
@@ -71,7 +82,8 @@ TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
 # autograd rounds each slot's value gradient to bf16 before summing them.
 TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
-                      "spmm_t_kernel")
+                      "spmm_t_kernel", "fused_parts_kernel", "ell_max_kernel")
+HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 
 
 def log(msg: str) -> None:
@@ -156,9 +168,32 @@ def phase_build(kernels) -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def swarm_config():
+def swarm_config(fusion: str = "attention"):
     cfg = get_config("dynamic_swarm")
-    return cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"))
+    return cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"),
+                       model=dataclasses.replace(cfg.model, fusion=fusion))
+
+
+def hideg_config():
+    """The dense swarm: 2 fully connected scenes of 193 robots, padded to
+    512 node slots, so the batch graph has no scene stride, an ELL width of
+    192 and a row-expanded plan (2 rows of 96, tile 128)."""
+    cfg = swarm_config()
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, num_robots=HIDEG_ROBOTS, scenes_per_batch=HIDEG_SCENES,
+        connectivity="full", comm_radius=0, mobility=0.0,
+        max_nodes=HIDEG_SLOTS))
+
+
+def hideg_graph(dev):
+    cfg = hideg_config()
+    g = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))["graph"]
+    edges = HIDEG_SCENES * HIDEG_ROBOTS * (HIDEG_ROBOTS - 1)
+    if (g.scene_stride or bsp.supports(g) or not bsp.supports_expanded(g)
+            or g.max_nodes != HIDEG_SLOTS or int(g.ell_mask.sum()) != edges):
+        raise AssertionError("the dense-swarm batch graph is not the "
+                             "row-expanded one")
+    return g.to(dev)
 
 
 def attention_inputs(V: int, dk: int, D: int, seed: int, dev):
@@ -300,26 +335,34 @@ def check_backward_kernels(x: dict, tag: str, errs: dict | None = None) -> None:
         raise AssertionError(f"{tag}: rows without a valid slot must be 0")
 
 
-def check_function_grads(x: dict, tag: str) -> None:
-    """FusedAttention's gradients (kernels) against autograd through the
-    plain version, on the card."""
+def _plain_f32_values(q, k, v, g):
+    """The plain attention on values upcast to f32: its value gradient is
+    summed in f32 and rounded to v's dtype once."""
+    return bsp.bsp_attention_fused_reference(q, k, v.float(), g)
+
+
+def check_function_grads(x: dict, tag: str, fn=bsp.bsp_attention_fused,
+                         name: str = "FusedAttention",
+                         plain=bsp.bsp_attention_fused_reference) -> None:
+    """The gradients of ``fn`` (kernels) against autograd through ``plain``,
+    on the card."""
     g = x["graph"]
     for dt in (torch.float32, torch.bfloat16):
         grads = []
-        for fn in (bsp.bsp_attention_fused, bsp.bsp_attention_fused_reference):
+        for f in (fn, plain):
             q = x["q"].detach().clone().requires_grad_()
             k = x["k"].detach().clone().requires_grad_()
             v = x["v"].detach().to(dt).requires_grad_()
-            (fn(q, k, v, g).float() * x["ct"]).sum().backward()
+            (f(q, k, v, g).float() * x["ct"]).sum().backward()
             grads.append((q.grad, k.grad, v.grad))
         torch.cuda.synchronize()
-        for name, got, want in zip(("dq", "dk", "dvalues"), *grads):
+        for gname, got, want in zip(("dq", "dk", "dvalues"), *grads):
             rel = float((got.float() - want.float()).abs().max()
                         / want.float().abs().max().clamp(min=1e-30))
-            log(f"[kernel] FusedAttention {name}, {tag}, values {dt}: max err "
+            log(f"[kernel] {name} {gname}, {tag}, values {dt}: max err "
                 f"{rel:.3e} of the largest gradient (tol {TOL_GRAD_REL[dt]:.3g})")
             if got.dtype != want.dtype or not rel <= TOL_GRAD_REL[dt]:
-                raise AssertionError(f"FusedAttention {name}: kernel backward "
+                raise AssertionError(f"{name} {gname}: kernel backward "
                                      "disagrees with autograd of the plain version")
 
 
@@ -345,12 +388,142 @@ def phase_train_kernels(dev) -> dict:
     return {"inputs": x, "errs": errs}
 
 
-def phase_serving(dev) -> dict:
-    cfg = swarm_config()
-    cfg_plain = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
-                                                         ops_impl="xla"))
+def crafted_wide_graph():
+    """Empty rows, duplicate edges, a degree-200 row and padded nodes: ELL
+    width 200, so a row-expanded plan of 2 rows x 104."""
+    a = np.array([[1, 1, 2, 3, 0, 5, 5, 5], [0, 0, 0, 1, 2, 4, 4, 4]])
+    wide = np.stack([np.arange(200) % 12, np.zeros(200, np.int64)])
+    return build_graph_batch([a, wide], [6, 12], max_nodes=128, max_edges=256)
+
+
+def check_parts(x: dict, tag: str, errs: dict | None = None) -> None:
+    """The parts kernel against its plain version on the expanded view of
+    ``x["graph"]`` (f32 and bf16 values), the whole expanded attention
+    against the plain attention, and its Function's gradients."""
+    g = x["graph"]
+    xp = g.bsp_expanded
+    src_x, mask_x = bsp.expand_ell_view(g.ell_src, g.ell_mask, xp.rows,
+                                        xp.width)
+    q_s, kf = bsp._scaled(x["q"], x["k"])
+    q_x = q_s.repeat_interleave(xp.rows, dim=0)
+    empty = ~mask_x.any(dim=1)
+    for dt in (torch.float32, torch.bfloat16):
+        v = x["v"].to(dt)
+        acc, m, l = bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x)
+        want = bsp.fused_attention_parts_reference(q_x, kf, v, src_x, mask_x)
+        torch.cuda.synchronize()
+        name = f"{tag} values {dt}"
+        # acc and l sum up to W weights <= 1: f32 error grows with sqrt(W)
+        err = check_kernel_vs_plain(f"bsp_fused_parts acc, {name}", acc,
+                                    want[0], False, scale=xp.width ** 0.5)
+        check_kernel_vs_plain(f"bsp_fused_parts m, {name}", m, want[1], False)
+        check_kernel_vs_plain(f"bsp_fused_parts l, {name}", l, want[2], False,
+                              scale=xp.width ** 0.5)
+        if not (bool((m[empty] == bsp._NEG).all()) and bool((l[empty] == 0).all())
+                and bool((acc[empty] == 0).all())):
+            raise AssertionError("expanded rows without a valid slot must "
+                                 "give m = -1e30, l = 0 and acc = 0")
+        out = bsp.expanded_attention_fused(x["q"], x["k"], v, g)
+        check_kernel_vs_plain(
+            f"expanded_attention_fused, {name}", out,
+            bsp.bsp_attention_fused_reference(x["q"], x["k"], v, g),
+            dt == torch.bfloat16)
+        if errs is not None and dt == torch.float32:
+            errs["bsp_fused_parts"] = err
+    # With bf16 values, autograd through the plain version would round each
+    # slot's value gradient to bf16 and sum up to 192 of them in bf16; the
+    # kernels sum in f32 and round once, so the plain side runs on f32 values.
+    check_function_grads(x, tag, bsp.expanded_attention_fused,
+                         "ExpandedFusedAttention", _plain_f32_values)
+
+
+def check_max(g, v: torch.Tensor, tag: str, errs: dict | None = None) -> None:
+    """The masked max against its plain version bit for bit (f32 and bf16),
+    NaN in giving NaN out, and the Function's gradient with ties against
+    autograd through the plain version."""
+    empty = ~g.ell_mask.any(dim=1)
+    for dt in (torch.float32, torch.bfloat16):
+        vv = v.to(dt)
+        got = ell.masked_max(vv, g.ell_src, g.ell_mask)
+        want = ell.masked_max_reference(vv, g.ell_src, g.ell_mask)
+        torch.cuda.synchronize()
+        err = check_kernel_vs_plain(f"ell_max, {tag} values {dt}", got, want,
+                                    dt == torch.bfloat16)
+        if not torch.equal(got, want) or not bool((got[empty] == 0).all()):
+            raise AssertionError(f"ell_max, {tag}: not bit-equal to the plain "
+                                 "version, or an empty row is not 0")
+        if errs is not None and dt == torch.float32:
+            errs["ell_max"] = err
+    r = int(g.ell_mask.any(dim=1).nonzero()[0])
+    j = int(g.ell_mask[r].nonzero()[0])
+    poisoned = v.clone()
+    poisoned[g.ell_src[r, j].long(), 5] = float("nan")
+    if not bool(torch.isnan(ell.masked_max(poisoned, g.ell_src, g.ell_mask)[r, 5])):
+        raise AssertionError("ell_max must propagate NaN as jnp.maximum does")
+    ct = torch.randn(v.shape, generator=torch.Generator().manual_seed(7)).to(v.device)
+    ties = (v * 2).round()  # many equal maxima among a row's valid slots
+    grads = []
+    for fn in (ell.ell_max, ell.masked_max_reference):
+        leaf = ties.clone().requires_grad_()
+        (fn(leaf, g.ell_src, g.ell_mask) * ct).sum().backward()
+        grads.append(leaf.grad)
+    torch.cuda.synchronize()
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    log(f"[kernel] EllMax dvalues with ties, {tag}: max err {rel:.3e} of the "
+        f"largest gradient (tol {TOL_GRAD_REL[torch.float32]:.3g})")
+    if not rel <= TOL_GRAD_REL[torch.float32]:
+        raise AssertionError("EllMax's gradient disagrees with autograd of "
+                             "the plain version")
+
+
+def phase_new_kernels(dev) -> dict:
+    """The parts kernel at the hideg path's shapes and the masked max at the
+    max path's, then both on the crafted wide graph."""
+    m = swarm_config().model
+    hw = m.image_size[0] // m.bottleneck_stride
+    D, dk = hw * hw * m.encoder_channels[-1], m.attention_dim
+    g = hideg_graph(dev)
+    log(f"[kernel] dense swarm: V {g.max_nodes}, deg {g.ell_src.shape[1]}, "
+        f"expanded {g.bsp_expanded.rows} x {g.bsp_expanded.width}, valid "
+        f"edges {int(g.ell_mask.sum())}, dk {dk}, D {D}")
+    x = backward_inputs(g, dk, D, 11, dev)
+    errs = {}
+    check_parts(x, "dense swarm", errs)
+    gm = next(iter(make_dataset(swarm_config("max").data, "eval",
+                                shuffle=False)))["graph"].to(dev)
+    (v,) = attention_inputs(gm.max_nodes, 1, D, 13, dev)[2:]
+    check_max(gm, v, "dynamic_swarm", errs)
+    cg = crafted_wide_graph().to(dev)
+    for D_c in (1030, 4096):
+        xc = backward_inputs(cg, dk, D_c, 15, dev)
+        check_parts(xc, f"crafted wide D {D_c}")
+        check_max(cg, xc["v"], f"crafted wide D {D_c}")
+    return {"inputs": x, "max_graph": gm, "max_values": v, "errs": errs}
+
+
+def _expected(per: dict) -> dict:
+    """A launch count for every kernel: ``per``'s, 0 for the others."""
+    unknown = set(per) - set(bsp.KERNELS)
+    if unknown:
+        raise AssertionError(f"unknown kernels {unknown}")
+    return {k: per.get(k, 0) for k in bsp.KERNELS}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _plain(cfg):
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel,
+                                                    ops_impl="xla"))
+
+
+def phase_serving(dev, cfg, per_request: dict, path: str) -> dict:
+    """Three eval batches through ``Predictor`` with the kernels, each
+    request checked for its kernel launches, then against the plain ops."""
+    cfg_plain = _plain(cfg)
     m = cfg.model
-    per_request = m.num_fusion_layers * m.attention_heads
+    want = _expected(per_request)
     model = MultiRobotPerceptionNet(
         m, ops_impl=cfg.parallel.ops_impl,
         generator=torch.Generator().manual_seed(0)).to(dev)
@@ -362,52 +535,52 @@ def phase_serving(dev) -> dict:
     outs = []
     for i, b in enumerate(batches):
         pred = Predictor(cfg, model, graph=b["graph"])
-        before = bsp.fused_attention.launches
+        before = bsp.launch_counts()
         out = pred(b["images"])
-        got = bsp.fused_attention.launches - before
-        if got != per_request:
-            raise AssertionError(f"request {i}: {got} kernel launches, "
-                                 f"expected {per_request}")
+        got = _delta(before, bsp.launch_counts())
+        if got != want:
+            raise AssertionError(f"{path} request {i}: kernel launches {got}, "
+                                 f"expected {want}")
         outs.append(out)
     launches = bsp.launch_counts()  # the serving path ends here
-    if launches["bsp_fused_attention"] == 0:
-        raise AssertionError("the serving path never launched the kernel")
+    if any(launches[k] == 0 for k in per_request):
+        raise AssertionError(f"the {path} serving path never launched one of "
+                             f"{sorted(per_request)}")
     max_err = 0.0
     for i, (b, out) in enumerate(zip(batches, outs)):
         d, s = out["depth"], out["seg"]
         V = b["graph"].max_nodes
+        valid = b["graph"].node_mask.numpy()
         if d.shape != (V,) + cfg.data.image_size or s.shape != d.shape:
             raise AssertionError(f"request {i}: bad shapes {d.shape} {s.shape}")
-        if not np.isfinite(d).all() or not ((d > m.min_depth) & (d < m.max_depth)).all():
+        dv = d[valid]
+        if not np.isfinite(d).all() or not ((dv > m.min_depth) & (dv < m.max_depth)).all():
             raise AssertionError(f"request {i}: depth out of range "
-                                 f"[{d.min()}, {d.max()}]")
+                                 f"[{dv.min()}, {dv.max()}]")
         if s.min() < 0 or s.max() >= m.num_seg_classes:
             raise AssertionError(f"request {i}: seg out of range")
         plain = Predictor(cfg_plain, model, graph=b["graph"])(b["images"])
         err = float(np.abs(plain["depth"] - d).max())
         agree = float((plain["seg"] == s).mean())
         max_err = max(max_err, err)
-        log(f"[serve] request {i}: depth [{d.min():.4f}, {d.max():.4f}] m, "
-            f"vs plain ops max abs err {err:.3e} m (tol {TOL_SERVE_DEPTH_M}),"
-            f" seg agreement {agree:.6f}")
+        log(f"[serve {path}] request {i}: {int(valid.sum())} of {V} views, "
+            f"depth [{dv.min():.4f}, {dv.max():.4f}] m, vs plain ops max abs "
+            f"err {err:.3e} m (tol {TOL_SERVE_DEPTH_M}), seg agreement "
+            f"{agree:.6f}")
         if err > TOL_SERVE_DEPTH_M:
-            raise AssertionError(f"request {i}: kernel path disagrees with "
-                                 "the plain ops")
-    log(f"[serve] 3 requests served, kernel launches {launches}")
+            raise AssertionError(f"{path} request {i}: kernel path disagrees "
+                                 "with the plain ops")
+    log(f"[serve {path}] 3 requests served, kernel launches {launches} "
+        f"({want} per request)")
     return {"model": model, "cfg": cfg, "batches": batches,
             "launches": launches, "depth_err": max_err}
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, cfg, per_step: dict, path: str) -> dict:
     """Three full-width train steps through the kernels, then the same three
     steps from the same weights through the plain ops, on the card."""
-    cfg = swarm_config()
-    cfg_plain = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
-                                                         ops_impl="xla"))
-    m = cfg.model
-    heads = m.num_fusion_layers * m.attention_heads
-    per_step = {"bsp_fused_attention": heads, "bsp_sddmm": heads,
-                "bsp_spmm": heads, "bsp_spmm_t": 2 * heads}
+    cfg_plain = _plain(cfg)
+    want = _expected(per_step)
     it = iter(make_dataset(cfg.data, "train"))
     inputs = [train.batch_to_device(next(it), dev) for _ in range(3)]
     state = train.create_train_state(cfg, dev)
@@ -419,11 +592,10 @@ def phase_train(dev) -> dict:
     for i, x in enumerate(inputs):
         before = bsp.launch_counts()
         state, t = step(state, *x)
-        after = bsp.launch_counts()
-        got = {k: after[k] - before[k] for k in after}
-        if got != per_step:
-            raise AssertionError(f"train step {i}: launches {got}, expected "
-                                 f"{per_step}")
+        got = _delta(before, bsp.launch_counts())
+        if got != want:
+            raise AssertionError(f"{path} train step {i}: launches {got}, "
+                                 f"expected {want}")
         terms.append(t)
     launches = bsp.launch_counts()  # the training path ends here
     terms = [{k: float(v) for k, v in t.items()} for t in terms]
@@ -436,13 +608,13 @@ def phase_train(dev) -> dict:
         plain_terms.append({k: float(v) for k, v in t.items()})
     for i, (t, p) in enumerate(zip(terms, plain_terms)):
         if not all(np.isfinite(list(t.values()))):
-            raise AssertionError(f"train step {i}: non-finite terms {t}")
+            raise AssertionError(f"{path} train step {i}: non-finite terms {t}")
         rel = {k: abs(t[k] - p[k]) / max(abs(p[k]), 1e-30) for k in p}
-        log(f"[train] step {i}: {json.dumps(t)}; relative difference to the "
-            f"plain ops {json.dumps(rel)} (tol {TOL_TRAIN_REL})")
+        log(f"[train {path}] step {i}: {json.dumps(t)}; relative difference "
+            f"to the plain ops {json.dumps(rel)} (tol {TOL_TRAIN_REL})")
         if sorted(t) != sorted(p) or max(rel.values()) > TOL_TRAIN_REL:
-            raise AssertionError(f"train step {i}: kernels and plain ops "
-                                 "disagree")
+            raise AssertionError(f"{path} train step {i}: kernels and plain "
+                                 "ops disagree")
     # Both runs start from the same weights; an Adam step moves an element by
     # at most about its lr (|m_hat| / sqrt(v_hat) <= 1 in the first steps)
     # whatever the gradient's size, so where the true gradient is 0 (the
@@ -454,16 +626,18 @@ def phase_train(dev) -> dict:
         diffs = sorted(((float((a - b).abs().max()), n) for (n, a), (_, b) in
                         zip(state.model.named_parameters(),
                             plain_model.named_parameters())), reverse=True)
-    log(f"[train] parameters after 3 steps, kernels vs plain ops: largest "
-        f"differences {[(n, f'{d:.3e}') for d, n in diffs[:3]]} (atol "
-        f"{atol:.3e}, lrs {lrs})")
+    log(f"[train {path}] parameters after 3 steps, kernels vs plain ops: "
+        f"largest differences {[(n, f'{d:.3e}') for d, n in diffs[:3]]} "
+        f"(atol {atol:.3e}, lrs {lrs})")
     if diffs[0][0] > atol:
         raise AssertionError(f"parameter {diffs[0][1]} differs by "
                              f"{diffs[0][0]} > {atol}")
-    log(f"[train] 3 steps, kernel launches {launches} ({per_step} per step)")
+    log(f"[train {path}] 3 steps, kernel launches {launches} ({want} per "
+        "step)")
     return {"cfg": cfg, "cfg_plain": cfg_plain, "state": state, "step": step,
             "plain_state": plain_state, "plain_step": plain_step,
-            "inputs": inputs, "launches": launches, "terms": terms}
+            "inputs": inputs, "launches": launches, "terms": terms,
+            "path": path}
 
 
 def bound_ms(tensors_read, tensors_written, flops: float) -> tuple:
@@ -494,9 +668,7 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
     # Yardstick: dense masked SDPA over [V, V] (same function when the
     # graph has no duplicate edges); timed here, never called by the port.
     V = q.shape[0]
-    allowed = torch.zeros(V, V, dtype=torch.bool, device=q.device)
-    rows = torch.arange(V, device=q.device)[:, None].expand_as(g.ell_src)
-    allowed[rows[g.ell_mask], g.ell_src.long()[g.ell_mask]] = True
+    allowed = dense_mask(g)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q[None, None], k[None, None], v[None, None],
         attn_mask=allowed[None, None])[0, 0]
@@ -520,6 +692,18 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
             "call_ms": call_ms, **tag}
     log(json.dumps(line))
 
+    predictor_timings(serve, tag, "attention")
+    return {"name": "bsp_fused_attention", "route": "cuda",
+            "source": "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_attention.cu",
+            "replaces": "mrp_gnn_tpu/ops/pallas_bsp.py:707",
+            "max_abs_err": kin["errs"]["torch.float32"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def predictor_timings(serve: dict, tag: dict, path: str) -> None:
+    """Device-side batch latency (CUDA events), whole-request latency (host
+    clock) and a profiler breakdown of the Predictor on one eval batch."""
     batch = serve["batches"][0]
     pred = Predictor(serve["cfg"], serve["model"], graph=batch["graph"])
     runs = [pred.throughput(iters=20) for _ in range(5)]
@@ -532,21 +716,107 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
         pred(batch["images"])
         req.append((time.perf_counter() - t0) * 1e3)
     req.sort()
+    views = int(batch["graph"].n_nodes)
     log(json.dumps({"metric": "predictor_batch", "config": "dynamic_swarm",
-                    "views_per_batch": pred.batch_nodes,
+                    "path": path, "views_per_batch": views,
+                    "node_slots": pred.batch_nodes,
                     "batch_latency_ms": lat * 1e3,
-                    "views_per_s": pred.batch_nodes / lat,
+                    "views_per_s": views / lat,
                     "runs_latency_ms": [r["batch_latency_s"] * 1e3 for r in runs],
                     "request_ms_median": statistics.median(req),
                     "request_ms_max": req[-1], "requests": len(req), **tag}))
     profile_device(lambda: pred(batch["images"]), 5, "predictor_profile",
-                   "requests", tag)
-    return {"name": "bsp_fused_attention", "route": "cuda",
-            "source": "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_attention.cu",
-            "replaces": "mrp_gnn_tpu/ops/pallas_bsp.py:707",
-            "max_abs_err": kin["errs"]["torch.float32"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms}
+                   "requests", {"path": path, **tag})
+
+
+def time_kernel(name, src_file, replaces, shape, fn, plain, library,
+                lib_name, bound, err, tag) -> dict:
+    """One kernel at one shape: device time per call (profiler) of the
+    kernel, its plain version and the library yardstick, back-to-back CUDA
+    events beside them, and its bound. Returns its entry of the kernels
+    line."""
+    ms, plain_ms, library_ms = (device_ms(f) for f in (fn, plain, library))
+    call_ms = {"kernel": cuda_ms(fn), "plain": cuda_ms(plain, reps=7),
+               "library": cuda_ms(library)}
+    b_ms, b_by, n_bytes, flops = bound
+    log(json.dumps({"metric": "kernel_time", "kernel": name,
+                    "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library": lib_name,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                    "flops": flops, "l2": "warm (back-to-back launches)",
+                    "timing": "ms, plain_ms, library_ms: device time per "
+                              "call (profiler); call_ms: back-to-back "
+                              "calls (CUDA events)",
+                    "call_ms": call_ms, **tag}))
+    return {"name": name, "route": "cuda", "source": src_file,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+def dense_mask(g) -> torch.Tensor:
+    """The graph's edges as a dense [V, V] mask, for the SDPA yardstick."""
+    V = g.max_nodes
+    allowed = torch.zeros(V, V, dtype=torch.bool, device=g.ell_src.device)
+    rows = torch.arange(V, device=g.ell_src.device)[:, None].expand_as(g.ell_src)
+    allowed[rows[g.ell_mask], g.ell_src.long()[g.ell_mask]] = True
+    return allowed
+
+
+def phase_new_kernel_timings(nk: dict, tag: dict) -> list:
+    """The parts kernel at the hideg path's shapes and the masked max at the
+    max path's (f32), beside their bounds, plain versions and yardsticks."""
+    x = nk["inputs"]
+    g = x["graph"]
+    xp = g.bsp_expanded
+    src_x, mask_x = bsp.expand_ell_view(g.ell_src, g.ell_mask, xp.rows,
+                                        xp.width)
+    q, k, v = x["q"], x["k"], x["v"]
+    q_s, kf = bsp._scaled(q, k)
+    q_x = q_s.repeat_interleave(xp.rows, dim=0)
+    edges = int(mask_x.sum())
+    D, dk = v.shape[1], q.shape[1]
+    allowed = dense_mask(g)
+    parts_out = (torch.empty(q_x.shape[0], D, device=v.device),
+                 torch.empty(q_x.shape[0], device=v.device),
+                 torch.empty(q_x.shape[0], device=v.device))
+    out = [time_kernel(
+        "bsp_fused_parts", "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_parts.cu",
+        "mrp_gnn_tpu/ops/pallas_bsp.py:1187",
+        {"V": g.max_nodes, "rows": xp.rows, "width": xp.width, "dk": dk,
+         "D": D, "edges": edges, "dtype": "float32"},
+        lambda: bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x),
+        lambda: bsp.fused_attention_parts_reference(q_x, kf, v, src_x, mask_x),
+        lambda: F.scaled_dot_product_attention(
+            q[None, None], k[None, None], v[None, None],
+            attn_mask=allowed[None, None])[0, 0],
+        "F.scaled_dot_product_attention, dense [V, V] mask (the whole "
+        "normalised attention)",
+        bound_ms((q_x, kf, v, src_x, mask_x), parts_out,
+                 edges * (2 * dk + 1 + 2 * D)),
+        nk["errs"]["bsp_fused_parts"], tag)]
+    gm, vm = nk["max_graph"], nk["max_values"]
+    src, mask = gm.ell_src, gm.ell_mask
+    V, deg = src.shape
+    edges = int(mask.sum())
+    rows = torch.arange(V, device=src.device)[:, None].expand(V, deg)[mask]
+    msgs = vm[src[mask].long()]  # gathered outside the timed call
+    index = rows[:, None].expand(-1, vm.shape[1]).contiguous()
+    base = torch.zeros_like(vm)
+    out.append(time_kernel(
+        "ell_max", "mrp_gnn_tpu_torch/ops/csrc/ell_max.cu",
+        "mrp_gnn_tpu/ops/pallas_ell.py:162",
+        {"V": V, "deg": deg, "D": vm.shape[1], "edges": edges,
+         "dtype": "float32"},
+        lambda: ell.masked_max(vm, src, mask),
+        lambda: ell.masked_max_reference(vm, src, mask),
+        lambda: base.scatter_reduce(0, index, msgs, "amax",
+                                    include_self=False),
+        "Tensor.scatter_reduce(amax, include_self=False) of the gathered "
+        "[E, D] messages",
+        bound_ms((vm, src, mask), (vm,), edges * vm.shape[1]),
+        nk["errs"]["ell_max"], tag))
+    return out
 
 
 def _csr(rows, cols, vals, shape):
@@ -571,25 +841,8 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     view = bsp.source_view(src, mask, V)
     out = []
 
-    def record(name, src_file, replaces, shape, fn, plain, library, lib_name,
-               bound):
-        ms, plain_ms, library_ms = (device_ms(f) for f in (fn, plain, library))
-        call_ms = {"kernel": cuda_ms(fn), "plain": cuda_ms(plain, reps=7),
-                   "library": cuda_ms(library)}
-        b_ms, b_by, n_bytes, flops = bound
-        log(json.dumps({"metric": "kernel_time", "kernel": name,
-                        "shape": shape, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "library": lib_name,
-                        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                        "flops": flops, "l2": "warm (back-to-back launches)",
-                        "timing": "ms, plain_ms, library_ms: device time per "
-                                  "call (profiler); call_ms: back-to-back "
-                                  "calls (CUDA events)",
-                        "call_ms": call_ms, **tag}))
-        out.append({"name": name, "route": "cuda", "source": src_file,
-                    "replaces": replaces, "max_abs_err": tk["errs"][name],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": library_ms})
+    def record(*args):
+        out.append(time_kernel(*args, tk["errs"][args[0]], tag))
 
     # SDDMM, dual form: (q_s, k) and (g, values), as the backward calls it.
     pattern = _csr(rows, cols, torch.ones(edges, device=src.device), (V, V))
@@ -644,46 +897,53 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     return out
 
 
-def phase_train_timings(tr: dict, tag: dict) -> None:
+def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
+                        inner: int = 20) -> None:
     """Device-side train step (one fixed batch on the card, CUDA events),
-    kernels and plain ops in turns; peak memory; one whole step through
-    ``train()`` by host clock; a profiler breakdown over 5 steps."""
+    kernels and plain ops in turns; peak memory; with ``loop``, one whole
+    step through ``train()`` by host clock; a profiler breakdown over 5
+    steps."""
     x = tr["inputs"][0]
+    path = tr["path"]
     kernels = lambda: tr["step"](tr["state"], *x)  # noqa: E731
     plain = lambda: tr["plain_step"](tr["plain_state"], *x)  # noqa: E731
     times = {"kernels": [], "plain": []}
     for name in ("kernels", "plain", "plain", "kernels"):
         fn = kernels if name == "kernels" else plain
-        times[name].append(cuda_ms(fn, reps=3, inner=20, warmup=2))
+        times[name].append(cuda_ms(fn, reps=3, inner=inner, warmup=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         kernels()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    V = tr["inputs"][0][3].max_nodes
+    V = int(x[3].n_nodes)
     step_ms = statistics.mean(times["kernels"])
     log(json.dumps({"metric": "train_step", "config": "dynamic_swarm",
-                    "views_per_step": V,
+                    "path": path, "views_per_step": V,
+                    "node_slots": x[3].max_nodes,
                     "device_step_ms_kernels": times["kernels"],
                     "device_step_ms_plain": times["plain"],
                     "views_per_s_kernels": V / step_ms * 1e3,
                     "views_per_s_plain": V / statistics.mean(times["plain"]) * 1e3,
                     "peak_memory_bytes_kernels": peak,
-                    "timing": "CUDA events, median of 3 x 20 steps per turn; "
-                              "turns kernels, plain, plain, kernels", **tag}))
-    cfg = tr["cfg"].replace(train=dataclasses.replace(tr["cfg"].train,
-                                                      log_every=1))
-    _, records = train.train(cfg, num_steps=4, device=tr["inputs"][0][0].device)
-    log(json.dumps({"metric": "train_loop", "config": "dynamic_swarm",
-                    "step_time_s": [r["step_time_s"] for r in records],
-                    "views_per_s": [r["views_per_s"] for r in records],
-                    "edges_per_s": [r["edges_per_s"] for r in records],
-                    "timing": "host clock between steps of train(), the "
-                              "device synchronised by reading the terms, "
-                              "the next batch's render and copy included; "
-                              "step 1 includes first-call costs", **tag}))
-    profile_device(kernels, 5, "train_profile", "steps", tag)
+                    "timing": f"CUDA events, median of 3 x {inner} steps per "
+                              "turn; turns kernels, plain, plain, kernels",
+                    **tag}))
+    if loop:
+        cfg = tr["cfg"].replace(train=dataclasses.replace(tr["cfg"].train,
+                                                          log_every=1))
+        _, records = train.train(cfg, num_steps=4, device=x[0].device)
+        log(json.dumps({"metric": "train_loop", "config": "dynamic_swarm",
+                        "path": path,
+                        "step_time_s": [r["step_time_s"] for r in records],
+                        "views_per_s": [r["views_per_s"] for r in records],
+                        "edges_per_s": [r["edges_per_s"] for r in records],
+                        "timing": "host clock between steps of train(), the "
+                                  "device synchronised by reading the terms, "
+                                  "the next batch's render and copy included; "
+                                  "step 1 includes first-call costs", **tag}))
+    profile_device(kernels, 5, "train_profile", "steps", {"path": path, **tag})
 
 
 def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
@@ -737,16 +997,41 @@ def main() -> int:
     with phase("kernels vs plain"):
         kin = phase_kernels(dev)
         tk = phase_train_kernels(dev)
+        nk = phase_new_kernels(dev)
+    m = swarm_config().model
+    h = m.num_fusion_layers * m.attention_heads
+    L = m.num_fusion_layers
+    # path: (config, launches per request, launches per train step)
+    paths = {
+        "attention": (swarm_config(), {"bsp_fused_attention": h},
+                      {"bsp_fused_attention": h, "bsp_sddmm": h,
+                       "bsp_spmm": h, "bsp_spmm_t": 2 * h}),
+        "hideg": (hideg_config(), {"bsp_fused_parts": h},
+                  {"bsp_fused_parts": h, "bsp_sddmm": h, "bsp_spmm": h,
+                   "bsp_spmm_t": 2 * h}),
+        "mean": (swarm_config("mean"), {"bsp_spmm": L},
+                 {"bsp_spmm": L, "bsp_spmm_t": L}),
+        "max": (swarm_config("max"), {"ell_max": L}, {"ell_max": L}),
+    }
+    serve, tr = {}, {}
     with phase("serving"):
-        serve = phase_serving(dev)
+        for path, (cfg, per_request, _) in paths.items():
+            serve[path] = phase_serving(dev, cfg, per_request, path)
     with phase("training"):
-        tr = phase_train(dev)
+        for path, (cfg, _, per_step) in paths.items():
+            tr[path] = phase_train(dev, cfg, per_step, path)
     with phase("timings"):
-        kernels = [phase_timings(kin, serve, tag)]
+        kernels = [phase_timings(kin, serve["attention"], tag)]
         kernels += phase_train_kernel_timings(tk, tag)
-        phase_train_timings(tr, tag)
+        kernels += phase_new_kernel_timings(nk, tag)
+        phase_train_timings(tr["attention"], tag)
+        for path in ("hideg", "mean", "max"):
+            predictor_timings(serve[path], tag, path)
+            phase_train_timings(tr[path], tag, loop=False, inner=10)
+    # Each kernel's launches come from the training path that runs it.
+    own_path = {"bsp_fused_parts": "hideg", "ell_max": "max"}
     for k in kernels:
-        k["launches"] = tr["launches"][k["name"]]
+        k["launches"] = tr[own_path.get(k["name"], "attention")]["launches"][k["name"]]
     log(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))

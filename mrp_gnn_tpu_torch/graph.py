@@ -8,18 +8,18 @@ A batch of scene graphs is flattened into one padded graph:
   by destination, padded to ``max_edges``;
 - masks = validity of each node / edge slot;
 - an ELL view (``ell_src``/``ell_mask``: per-destination padded neighbour
-  lists) and, where the node count allows, a tile-pair plan (``bsp_*``).
+  lists) and, where the node count allows, a tile-pair plan (``bsp_*``),
+  or, for ELL widths past 128, a row-expanded plan (``bsp_expanded``).
 
 The builders are numpy and give arrays bit-identical to the JAX package's
-numpy builders (``tests/test_torch_graph.py``). The tile-pair plan is kept
-field for field although the CUDA kernel gathers straight from ``ell_src``:
-it marks a batch as one the fused kernel serves, exactly as in the JAX
-package, and later kernels (training backward) may use it.
+numpy builders (``tests/test_torch_graph.py``). The tile-pair plans, square
+and row-expanded, are kept field for field although the CUDA kernels gather
+straight from ``ell_src``: they mark a batch as one the kernels serve,
+exactly as in the JAX package.
 
 Not ported here: the native C++ builder (``backend="native"`` raises;
 ``"auto"`` resolves to numpy, which the JAX package's tests hold
-bit-identical to it) and the row-expanded plan for ELL widths past 128
-(``build_expanded_bsp`` raises).
+bit-identical to it).
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ _TENSOR_FIELDS = (
     "bsp_pair_dst", "bsp_pair_src", "bsp_pair_first", "bsp_pair_last",
     "bsp_pair_dst_t", "bsp_pair_src_t", "bsp_pair_first_t",
     "bsp_pair_last_t")
+_PLAN_FIELDS = ("pair_dst", "pair_src", "pair_first", "pair_last",
+                "pair_dst_t", "pair_src_t", "pair_first_t", "pair_last_t")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +49,9 @@ class GraphBatch:
     float32 ``scene_adj``; ``scene_stride`` and ``bsp_tile`` are plain ints.
     ``scene_stride > 0`` tags a block-diagonal batch (every scene shares one
     topology at a fixed node stride), which takes the dense block path.
-    ``partition_plan`` and ``bsp_expanded`` are always None in this port.
+    ``bsp_expanded`` holds a :class:`BspExpandedPlan` when the ELL width
+    passes 128 and the builder made one; ``partition_plan`` is always None
+    in this port.
     """
 
     edge_src: torch.Tensor
@@ -74,9 +78,12 @@ class GraphBatch:
     bsp_expanded: object | None = None
 
     def to(self, device) -> "GraphBatch":
-        """Copy of the batch with every tensor field on ``device``."""
+        """Copy of the batch with every tensor field on ``device``, those of
+        the row-expanded plan included."""
         moved = {f: getattr(self, f).to(device) for f in _TENSOR_FIELDS
                  if getattr(self, f) is not None}
+        if self.bsp_expanded is not None:
+            moved["bsp_expanded"] = self.bsp_expanded.to(device)
         return dataclasses.replace(self, **moved)
 
     @property
@@ -96,22 +103,83 @@ def _round_up_int(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def build_expanded_bsp(ell_src, ell_mask, tile: int, cap: int = 128,
-                       max_pairs: int | None = None):
-    """Row-expanded tile-pair plan for ELL widths past 128: not ported."""
-    raise NotImplementedError(
-        "row-expanded plans for ELL width > 128 are not ported yet "
-        "(ROADMAP.md, queue B item 7: expanded_attention_fused)")
+@dataclasses.dataclass(frozen=True)
+class BspExpandedPlan:
+    """Row-expanded tile-pair plan for ELL widths past 128 (the JAX
+    package's ``BspExpandedPlan``, field for field, as int32 tensors).
+
+    The [V, deg] neighbour list is viewed as [V * rows, width] (row-major:
+    node v's list splits across expanded rows v * rows .. v * rows + rows -
+    1; pad columns are mask-False). ``pair_*`` walk the rectangular (V *
+    rows destination, V source) tile space, ``pair_*_t`` its source-major
+    re-sort. The CUDA kernels gather from the expanded view of ``ell_src``
+    and never read the pairs: the plan marks a batch as one they serve.
+    """
+
+    pair_dst: torch.Tensor
+    pair_src: torch.Tensor
+    pair_first: torch.Tensor
+    pair_last: torch.Tensor
+    pair_dst_t: torch.Tensor
+    pair_src_t: torch.Tensor
+    pair_first_t: torch.Tensor
+    pair_last_t: torch.Tensor
+    rows: int
+    width: int
+
+    def to(self, device) -> "BspExpandedPlan":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _PLAN_FIELDS})
+
+
+def expanded_ell_shape(deg: int, cap: int = 128) -> tuple[int, int]:
+    """(rows, width) of the row-expanded view of an ELL width ``deg``: the
+    fewest rows keeping width <= cap, width rounded up to a multiple of 8."""
+    rows = -(-deg // cap)
+    width = _round_up_int(-(-deg // rows), 8)
+    return rows, width
+
+
+def build_expanded_bsp(ell_src: np.ndarray, ell_mask: np.ndarray,
+                       tile: int, cap: int = 128,
+                       max_pairs: int | None = None) -> BspExpandedPlan:
+    """Host-side expanded tile-pair plan for a high-degree ELL layout.
+
+    ``max_pairs`` pins the plan length (inert padding, as
+    :func:`build_bsp_pairs`); a batch that needs more pairs raises
+    ValueError. The expanded plan length is not subset-monotone, so callers
+    bound their own topology family.
+    """
+    V, deg = ell_src.shape
+    rows, width = expanded_ell_shape(deg, cap)
+    pad = rows * width - deg
+    src_x = np.pad(np.asarray(ell_src), ((0, 0), (0, pad))).reshape(
+        V * rows, width)
+    mask_x = np.pad(np.asarray(ell_mask), ((0, 0), (0, pad))).reshape(
+        V * rows, width)
+    nt_src = V // tile
+    pairs = build_bsp_pairs(src_x, mask_x, tile, max_pairs=max_pairs,
+                            num_src_tiles=nt_src)
+    pairs_t = derive_bsp_pairs_t(
+        pairs[0], pairs[1], pairs[3], nt_src,
+        max_pairs=bsp_pairs_t_capacity(max_pairs, nt_src))
+    return BspExpandedPlan(*(_t(a) for a in (*pairs, *pairs_t)),
+                           rows=rows, width=width)
 
 
 def _warn_hideg_fallback(width: int) -> None:
     """Warn (once per process, by the default warnings filter) that a
-    capacity-pinned batch crossed the 128-column degree cap without an
-    expanded plan, so attention takes the plain ELL gather path."""
+    capacity-pinned batch crossed the 128-column degree cap without the
+    ``max_expanded_pairs`` opt-in, so it carries no row-expanded plan and
+    attention and mean take the plain ELL gather path."""
     warnings.warn(
         f"graph batch in-degree width {width} exceeds the 128-column kernel "
-        "cap and carries no row-expanded plan: edge aggregation takes the "
-        "plain ELL gather path", UserWarning, stacklevel=3)
+        "cap but carries no row-expanded plan: capacity-pinned (dynamic) "
+        "streams build one only with an explicit opt-in, so edge "
+        "aggregation takes the plain ELL gather path. Pass "
+        "max_expanded_pairs=<bound for your topology family> to "
+        "batch_from_positions/build_graph_batch to opt in",
+        UserWarning, stacklevel=3)
 
 
 def fully_connected_edges(num_robots: int, self_loops: bool = False) -> np.ndarray:
@@ -220,8 +288,9 @@ def build_graph_batch(
       max_nodes / max_edges: static padded capacities.
       max_degree: pin the ELL width (rounded up to 8) for dynamic streams.
       max_bsp_pairs: pin the tile-pair plan length (inert-padded).
-      max_expanded_pairs: pin the row-expanded plan length (not ported:
-        raises when a plan would be built).
+      max_expanded_pairs: pin the row-expanded plan length (ELL width >
+        128) for dynamic streams; without it a pinned batch past the cap
+        gets no plan (and a warning), an unpinned one an unpinned plan.
     """
     srcs, dsts, scenes = [], [], []
     offset = 0
@@ -277,15 +346,18 @@ def build_graph_batch(
     bsp_tile = 0
     pairs = (None,) * 4
     pairs_t = (None,) * 4
+    expanded = None
     for t in (128, 256, 64, 32, 16, 8):
         if max_nodes % t == 0:
             bsp_tile = t
             if max_deg > 128:
-                if max_expanded_pairs is not None or (
-                        max_bsp_pairs is None and max_degree is None):
-                    build_expanded_bsp(ell_src, ell_mask, t,
-                                       max_pairs=max_expanded_pairs)
-                _warn_hideg_fallback(max_deg)
+                if max_expanded_pairs is not None:
+                    expanded = build_expanded_bsp(
+                        ell_src, ell_mask, t, max_pairs=max_expanded_pairs)
+                elif max_bsp_pairs is None and max_degree is None:
+                    expanded = build_expanded_bsp(ell_src, ell_mask, t)
+                else:
+                    _warn_hideg_fallback(max_deg)
                 break
             pairs = build_bsp_pairs(ell_src, ell_mask, t,
                                     max_pairs=max_bsp_pairs)
@@ -314,6 +386,7 @@ def build_graph_batch(
         bsp_pair_first_t=_t(pairs_t[2]),
         bsp_pair_last_t=_t(pairs_t[3]),
         bsp_tile=bsp_tile,
+        bsp_expanded=expanded,
     )
 
 

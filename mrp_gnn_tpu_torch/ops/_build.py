@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ops/_build/`` (git-ignored) and loaded with ``ctypes``. The library file
 name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
-the flags, so an edited source is never served by a stale build. Nothing here runs at import time; a failed build
-raises, it never falls back to the plain version.
+the flags, so an edited source is never served by a stale build. Nothing
+here runs at import time; a failed build raises, it never falls back to the
+plain version. :func:`run` calls a kernel's C entry point.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -73,6 +76,23 @@ def build(names) -> None:
             os.replace(tmp, _library_path(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def run(name: str, argtypes: list, *args) -> None:
+    """Call the C entry point ``name`` of ``csrc/<name>.cu`` (built at first
+    use) and raise if the launch was refused."""
+    fn = getattr(load(name), name)  # ctypes keeps one object per name
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
 def load(name: str) -> ctypes.CDLL:

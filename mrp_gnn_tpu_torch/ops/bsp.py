@@ -1,5 +1,5 @@
-"""Graph attention over ELL neighbour lists: the port's counterpart of
-``mrp_gnn_tpu/ops/pallas_bsp.py`` for the serving and training paths.
+"""Graph attention and mean aggregation over ELL neighbour lists: the
+port's counterpart of ``mrp_gnn_tpu/ops/pallas_bsp.py``.
 
 ``bsp_attention_fused`` computes SDDMM + masked softmax + SpMM over a
 batch's ELL neighbour lists in one kernel (``csrc/bsp_fused_attention.cu``,
@@ -15,8 +15,16 @@ replacing the TPU's ``_fused_kernel``), with a backward
   sums, driven by a source-major view of the valid slots
   (:func:`source_view`) so that they need no float atomics.
 
-The CUDA kernels gather rows straight from ``ell_src``; the tile-pair plan
-only marks the batches they serve (``supports``), as in the JAX package.
+``bsp_mean`` is the SpMM with the JAX ``_bsp_spmm`` gradient
+(:class:`WeightedAggregate`). ELL widths past 128 run over the row-expanded
+view of the neighbour lists (``graph.BspExpandedPlan``, at most 128 slots
+per expanded row): ``expanded_attention_fused`` through
+``fused_attention_parts`` (``csrc/bsp_fused_parts.cu``, replacing the TPU's
+``_fused_parts_kernel``) and :func:`xp_combine`, whose backward runs the
+same three kernels on the expanded view; ``expanded_mean`` through the
+SpMM. The CUDA kernels gather rows straight from ``ell_src``; the tile-pair
+plans only mark the batches they serve (``supports``,
+``supports_expanded``), as in the JAX package.
 
 Each kernel has a wrapper and a plain torch version beside it. A wrapper
 runs the plain version for CPU tensors; for CUDA tensors it launches the
@@ -30,13 +38,15 @@ import math
 
 import torch
 
-from mrp_gnn_tpu_torch.ops import _build
+from mrp_gnn_tpu_torch.ops import _build, ell
+from mrp_gnn_tpu_torch.ops import reference as R
 
 _NEG = -1e30
 MAX_DEGREE = 128  # the kernels keep a row's slots in shared memory
-MAX_DK = 256      # the fused kernel keeps a row's query in shared memory
+MAX_DK = 256      # the fused kernels keep a row's query in shared memory
 _KERNEL = "bsp_fused_attention"
-KERNELS = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t")
+KERNELS = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
+           "bsp_fused_parts", "ell_max")
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -46,6 +56,28 @@ def supports(graph) -> bool:
     return (graph.bsp_tile > 0 and graph.ell_src is not None
             and graph.bsp_pair_dst is not None
             and graph.ell_src.shape[1] <= MAX_DEGREE)
+
+
+def supports_expanded(graph) -> bool:
+    """True when the batch carries a row-expanded high-degree plan."""
+    return (graph.bsp_tile > 0 and graph.ell_src is not None
+            and graph.bsp_expanded is not None)
+
+
+def _expand_rows(x: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+    """Row-major [V, deg] -> [V * rows, width], zero / False padded: the
+    layout ``graph.build_expanded_bsp`` derives its plan from."""
+    pad = rows * width - x.shape[1]
+    return torch.nn.functional.pad(x, (0, pad)).reshape(-1, width)
+
+
+def expand_ell_view(ell_src: torch.Tensor, ell_mask: torch.Tensor,
+                    rows: int, width: int) -> tuple:
+    """The [V * rows, width] view of an ELL layout (contiguous copies; pad
+    columns are mask-False): node v's slots split over expanded rows
+    v * rows .. v * rows + rows - 1."""
+    return _expand_rows(ell_src, rows, width), _expand_rows(ell_mask, rows,
+                                                            width)
 
 
 # --- plain torch versions ----------------------------------------------------
@@ -127,22 +159,6 @@ def source_view(ell_src: torch.Tensor, ell_mask: torch.Tensor,
 # --- kernel wrappers ---------------------------------------------------------
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _run(name: str, argtypes: list, *args) -> None:
-    """Call the C entry point ``name`` of ``csrc/<name>.cu`` (built at first
-    use) and raise if the launch was refused."""
-    fn = getattr(_build.load(name), name)  # ctypes keeps one object per name
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
-
-
 def _vec8(*tensors) -> bool:
     """16-byte loads: every row a multiple of 8 elements, 16-byte aligned."""
     return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
@@ -173,22 +189,37 @@ def _check_cuda(kernel: str, ell_src, ell_mask, **tensors) -> None:
                          f"{ell_src.shape[1]}")
 
 
-def _check_cuda_inputs(q_s, k, values, ell_src, ell_mask) -> None:
+def _check_cuda_inputs(q, k, values, ell_src, ell_mask,
+                       kernel: str = _KERNEL) -> None:
+    """Checks of the fused kernels: q [V, dk] with one row per ELL row; k
+    [Vs, dk] and values [Vs, D] with one row per source (Vs = V for the
+    square kernel, which takes q_s and k of one shape)."""
     if values.device.type != "cuda":
-        raise RuntimeError(f"no fused attention kernel for {values.device}")
-    _check_cuda(_KERNEL, ell_src, ell_mask, q_s=q_s, k=k, values=values)
-    if q_s.dtype != torch.float32 or k.dtype != torch.float32:
-        raise TypeError("q_s and k must be float32")
+        what = "fused attention" if kernel == _KERNEL else kernel
+        raise RuntimeError(f"no {what} kernel for {values.device}")
+    _check_cuda(kernel, ell_src, ell_mask, q=q, k=k, values=values)
+    if q.dtype != torch.float32 or k.dtype != torch.float32:
+        raise TypeError("q and k must be float32")
     if values.dtype not in _VALUE_TYPES:
         raise TypeError(f"values must be float32 or bfloat16, got {values.dtype}")
-    V = ell_src.shape[0]
-    if (q_s.dim() != 2 or q_s.shape != k.shape or q_s.shape[0] != V
-            or values.dim() != 2 or values.shape[0] != V):
+    rows = ell_src.shape[0] if kernel == _KERNEL else k.shape[0]
+    if (q.dim() != 2 or k.dim() != 2 or q.shape[1] != k.shape[1]
+            or q.shape[0] != ell_src.shape[0] or k.shape[0] != rows
+            or values.dim() != 2 or values.shape[0] != rows):
         raise ValueError(
-            f"shape mismatch: q_s {tuple(q_s.shape)}, k {tuple(k.shape)}, "
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"values {tuple(values.shape)}, ell_src {tuple(ell_src.shape)}")
-    if q_s.shape[1] > MAX_DK:
-        raise ValueError(f"kernel takes dk <= {MAX_DK}, got {q_s.shape[1]}")
+    if q.shape[1] > MAX_DK:
+        raise ValueError(f"kernel takes dk <= {MAX_DK}, got {q.shape[1]}")
+
+
+def _fused_vec(values: torch.Tensor, out: torch.Tensor) -> int:
+    """Features per thread of the fused kernels: 16-byte loads of values
+    where D and both row starts allow, else 1."""
+    per16 = 8 if values.dtype == torch.bfloat16 else 4
+    return per16 if (values.shape[1] % per16 == 0
+                     and values.data_ptr() % 16 == 0
+                     and out.data_ptr() % 16 == 0) else 1
 
 
 def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
@@ -208,21 +239,69 @@ def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
     if out.numel() == 0:
         return out
     V, deg = ell_src.shape
-    bf16 = values.dtype == torch.bfloat16
-    per16 = 8 if bf16 else 4  # elements in a 16-byte load
-    vec = per16 if (values.shape[1] % per16 == 0 and values.data_ptr() % 16 == 0
-                    and out.data_ptr() % 16 == 0) else 1
-    _run(_KERNEL, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
-        q_s.data_ptr(), k.data_ptr(), values.data_ptr(), ell_src.data_ptr(),
-        ell_mask.data_ptr(), out.data_ptr(), V, deg, q_s.shape[1],
-        values.shape[1], int(bf16), vec, values.device.index, _stream(values))
+    _build.run(_KERNEL, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               q_s.data_ptr(), k.data_ptr(), values.data_ptr(),
+               ell_src.data_ptr(), ell_mask.data_ptr(), out.data_ptr(), V,
+               deg, q_s.shape[1], values.shape[1],
+               int(values.dtype == torch.bfloat16), _fused_vec(values, out),
+               values.device.index, _build.stream(values))
     fused_attention.launches += 1
     return out
 
 
 fused_attention.launches = 0
+
+
+def fused_attention_parts_reference(q_x: torch.Tensor, k: torch.Tensor,
+                                    values: torch.Tensor, src_x: torch.Tensor,
+                                    mask_x: torch.Tensor) -> tuple:
+    """Plain torch version of the parts kernel: per expanded row r, the raw
+    online-softmax triple of the JAX package's ``_fused_parts_kernel``.
+
+    q_x: f32 [V * R, dk], scaled by 1/sqrt(dk) and repeated R times; k f32
+    [V, dk]; values [V, D]; src_x int32 / mask_x bool [V * R, W]. Returns
+    (acc f32 [V * R, D], m f32 [V * R], l f32 [V * R]): m the max of the
+    row's valid logits (_NEG when it has none), l and acc the sums of
+    exp(logit - max(m, _NEG / 2)) and of those weights times the value rows.
+    """
+    src = src_x.long()
+    logits = torch.einsum("vd,vjd->vj", q_x, k[src])
+    x = torch.where(mask_x, logits, _NEG)
+    m = x.amax(dim=-1)
+    e = torch.where(mask_x, torch.exp(x - torch.clamp(m, min=_NEG / 2)[:, None]),
+                    0.0)
+    acc = torch.einsum("vj,vjd->vd", e, values[src].float())
+    return acc, m, e.sum(-1)
+
+
+def fused_attention_parts(q_x: torch.Tensor, k: torch.Tensor,
+                          values: torch.Tensor, src_x: torch.Tensor,
+                          mask_x: torch.Tensor) -> tuple:
+    """Kernel wrapper, same contract as
+    :func:`fused_attention_parts_reference`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if values.device.type == "cpu":
+        return fused_attention_parts_reference(q_x, k, values, src_x, mask_x)
+    _check_cuda_inputs(q_x, k, values, src_x, mask_x, "bsp_fused_parts")
+    rows, deg = src_x.shape
+    acc = torch.empty(rows, values.shape[1], dtype=torch.float32,
+                      device=values.device)
+    m = torch.empty(rows, dtype=torch.float32, device=values.device)
+    l = torch.empty_like(m)
+    _build.run("bsp_fused_parts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               q_x.data_ptr(), k.data_ptr(), values.data_ptr(),
+               src_x.data_ptr(), mask_x.data_ptr(), acc.data_ptr(),
+               m.data_ptr(), l.data_ptr(), rows, deg, q_x.shape[1],
+               values.shape[1], int(values.dtype == torch.bfloat16),
+               _fused_vec(values, acc), values.device.index,
+               _build.stream(values))
+    fused_attention_parts.launches += 1
+    return acc, m, l
+
+
+fused_attention_parts.launches = 0
 
 
 def _pair_flags(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -262,15 +341,16 @@ def sddmm(a1: torch.Tensor, b1: torch.Tensor, ell_src: torch.Tensor,
     out1 = torch.empty(V, deg, dtype=torch.float32, device=a1.device)
     out2 = torch.empty_like(out1) if dual else None
     if out1.numel():
-        _run("bsp_sddmm", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-             a1.data_ptr(), b1.data_ptr(), a1.shape[1], _pair_flags(a1, b1),
-             a2.data_ptr() if dual else None, b2.data_ptr() if dual else None,
-             a2.shape[1] if dual else 0, _pair_flags(a2, b2) if dual else 0,
-             ell_src.data_ptr(), ell_mask.data_ptr(), out1.data_ptr(),
-             out2.data_ptr() if dual else None, V, deg, a1.device.index,
-             _stream(a1))
+        _build.run(
+            "bsp_sddmm", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            a1.data_ptr(), b1.data_ptr(), a1.shape[1], _pair_flags(a1, b1),
+            a2.data_ptr() if dual else None, b2.data_ptr() if dual else None,
+            a2.shape[1] if dual else 0, _pair_flags(a2, b2) if dual else 0,
+            ell_src.data_ptr(), ell_mask.data_ptr(), out1.data_ptr(),
+            out2.data_ptr() if dual else None, V, deg, a1.device.index,
+            _build.stream(a1))
         sddmm.launches += 1
     return (out1, out2) if dual else out1
 
@@ -294,11 +374,12 @@ def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
     out = torch.empty(V, x.shape[1], dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _run("bsp_spmm", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-         + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-         w.data_ptr(), x.data_ptr(), ell_src.data_ptr(), ell_mask.data_ptr(),
-         out.data_ptr(), V, deg, x.shape[1], int(x.dtype == torch.bfloat16),
-         8 if _vec8(x, out) else 1, x.device.index, _stream(x))
+    _build.run("bsp_spmm", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               w.data_ptr(), x.data_ptr(), ell_src.data_ptr(),
+               ell_mask.data_ptr(), out.data_ptr(), V, deg, x.shape[1],
+               int(x.dtype == torch.bfloat16), 8 if _vec8(x, out) else 1,
+               x.device.index, _build.stream(x))
     spmm.launches += 1
     return out
 
@@ -338,12 +419,12 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
         ell_src, ell_mask, num_rows)
     if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
         raise ValueError("view does not fit this batch and num_rows")
-    _run("bsp_spmm_t", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-         w.data_ptr(), x.data_ptr(), offsets.data_ptr(), slots.data_ptr(),
-         out.data_ptr(), num_rows, deg, x.shape[1],
-         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-         8 if _vec8(x, out) else 1, x.device.index, _stream(x))
+    _build.run("bsp_spmm_t", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+               + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+               w.data_ptr(), x.data_ptr(), offsets.data_ptr(),
+               slots.data_ptr(), out.data_ptr(), num_rows, deg, x.shape[1],
+               int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+               8 if _vec8(x, out) else 1, x.device.index, _build.stream(x))
     spmm_t.launches += 1
     return out
 
@@ -351,36 +432,55 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
 spmm_t.launches = 0
 
 
+_WRAPPERS = (fused_attention, sddmm, spmm, spmm_t, fused_attention_parts,
+             ell.masked_max)  # in the order of KERNELS
+
+
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in (fused_attention, sddmm, spmm, spmm_t):
+    for fn in _WRAPPERS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Launch count of each kernel, by its source name."""
-    return dict(zip(KERNELS, (fused_attention.launches, sddmm.launches,
-                              spmm.launches, spmm_t.launches)))
+    return {name: fn.launches for name, fn in zip(KERNELS, _WRAPPERS)}
 
 
 # --- autograd ------------------------------------------------------------------
 
 
-def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g) -> tuple:
-    """(dq_s, dk, dvalues) of :func:`fused_attention` for the output
-    cotangent ``g``: the steps of the JAX package's ``_bsp_fused_bwd``
-    (``pallas_bsp.py:865-890``), each sparse product a kernel on CUDA."""
+def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g,
+                             rows: int = 1) -> tuple:
+    """(dq_s, dk, dvalues) of the fused attention for the output cotangent
+    ``g``, each sparse product a kernel on CUDA.
+
+    rows 1: the steps of the JAX package's ``_bsp_fused_bwd``
+    (``pallas_bsp.py:865-890``). rows R > 1: those of ``_xp_fused_bwd``
+    (``:1333-1376``) over the row-expanded view ``ell_src``/``ell_mask``
+    [V * R, W]: q_s and g repeated R times, the softmax on the logits
+    folded to [V, R * W], and dq summed over each node's R rows.
+    """
+    V = q_s.shape[0]
     g = g.contiguous()  # may arrive as a permuted view (models/fusion.py)
-    logits, dalpha = sddmm(q_s, k, ell_src, ell_mask, g, values)
-    alpha = masked_softmax(logits, ell_mask)
+    q_x, g_x = q_s, g
+    if rows > 1:
+        q_x = q_s.repeat_interleave(rows, dim=0)
+        g_x = g.repeat_interleave(rows, dim=0)
+    logits, dalpha = sddmm(q_x, k, ell_src, ell_mask, g_x, values)
+    mask = ell_mask.reshape(V, -1)
+    alpha = masked_softmax(logits.reshape(V, -1), mask)
     view = (source_view(ell_src, ell_mask, values.shape[0])
             if values.is_cuda else None)
-    dvalues = spmm_t(alpha, g, ell_src, ell_mask, values.shape[0],
-                     values.dtype, view)
+    dvalues = spmm_t(alpha.reshape(ell_src.shape), g_x, ell_src, ell_mask,
+                     values.shape[0], values.dtype, view)
+    dalpha = dalpha.reshape(V, -1)
     dlog = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
-    dlog = torch.where(ell_mask, dlog, 0.0)
+    dlog = torch.where(mask, dlog, 0.0).reshape(ell_src.shape)
     dq = spmm(dlog, k, ell_src, ell_mask)
-    dk = spmm_t(dlog, q_s, ell_src, ell_mask, k.shape[0], k.dtype, view)
+    if rows > 1:
+        dq = dq.reshape(V, rows, -1).float().sum(dim=1)
+    dk = spmm_t(dlog, q_x, ell_src, ell_mask, k.shape[0], k.dtype, view)
     return dq.to(q_s.dtype), dk, dvalues
 
 
@@ -397,6 +497,82 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (*fused_attention_backward(*ctx.saved_tensors, g), None, None)
+
+
+def xp_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, V: int,
+               rows: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Fold each node's R expanded-row triples (:func:`fused_attention_parts`)
+    into one softmax, as the JAX package's ``_xp_combine``: rows with l == 0
+    (no valid slot) carry m == _NEG and weight 0; a node with none gives 0."""
+    accf = acc.reshape(V, rows, -1)
+    mf = m.reshape(V, rows)
+    lf = l.reshape(V, rows)
+    mx = torch.clamp(mf.amax(dim=1, keepdim=True), min=_NEG / 2)
+    w = torch.exp(mf - mx)                                   # [V, rows]
+    num = (w[..., None] * accf).sum(dim=1)                   # [V, D]
+    den = (w * lf).sum(dim=1, keepdim=True)                  # [V, 1]
+    return torch.where(den > 0, num / torch.clamp(den, min=1e-30),
+                       0.0).to(out_dtype)
+
+
+class ExpandedFusedAttention(torch.autograd.Function):
+    """One-pass attention over the row-expanded view: the kernel's raw
+    parts, then :func:`xp_combine`; the counterpart of the JAX package's
+    ``_xp_fused`` custom vjp, whose backward recomputes the logits."""
+
+    @staticmethod
+    def forward(ctx, q_s, k, values, src_x, mask_x, rows):
+        ctx.save_for_backward(q_s, k, values, src_x, mask_x)
+        ctx.rows = rows
+        acc, m, l = fused_attention_parts(q_s.repeat_interleave(rows, dim=0),
+                                          k, values, src_x, mask_x)
+        return xp_combine(acc, m, l, q_s.shape[0], rows, values.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_attention_backward(*ctx.saved_tensors, g, rows=ctx.rows)
+        return (*grads, None, None, None)
+
+
+class WeightedAggregate(torch.autograd.Function):
+    """:func:`spmm` with the JAX package's ``_bsp_spmm`` custom vjp:
+    dweights = sddmm(g, values), only when the weights need a gradient, and
+    dvalues = spmm_t(weights, g). Weights must be 0 on masked slots."""
+
+    @staticmethod
+    def forward(ctx, w, values, ell_src, ell_mask):
+        ctx.save_for_backward(w, values, ell_src, ell_mask)
+        return spmm(w, values, ell_src, ell_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, values, ell_src, ell_mask = ctx.saved_tensors
+        g = g.contiguous()
+        dw = dvalues = None
+        if ctx.needs_input_grad[0]:
+            dw = sddmm(g, values, ell_src, ell_mask).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            dvalues = spmm_t(w, g, ell_src, ell_mask, values.shape[0],
+                             values.dtype)
+        return dw, dvalues, None, None
+
+
+class EdgeDot(torch.autograd.Function):
+    """:func:`sddmm` with the JAX package's ``_bsp_sddmm`` custom vjp:
+    da = spmm(g, b), db = spmm_t(g, a)."""
+
+    @staticmethod
+    def forward(ctx, a, b, ell_src, ell_mask):
+        ctx.save_for_backward(a, b, ell_src, ell_mask)
+        return sddmm(a, b, ell_src, ell_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, ell_src, ell_mask = ctx.saved_tensors
+        g = g.contiguous()
+        da = spmm(g, b, ell_src, ell_mask).to(a.dtype)
+        db = spmm_t(g, a, ell_src, ell_mask, b.shape[0], b.dtype)
+        return da, db, None, None
 
 
 def _scaled(q: torch.Tensor, k: torch.Tensor):
@@ -420,8 +596,95 @@ def bsp_attention_fused(q: torch.Tensor, k: torch.Tensor,
 
 def bsp_attention_fused_reference(q: torch.Tensor, k: torch.Tensor,
                                   values: torch.Tensor, graph) -> torch.Tensor:
-    """Plain torch version of :func:`bsp_attention_fused`, on any device;
-    torch's autograd differentiates it."""
+    """Plain torch version of :func:`bsp_attention_fused` (and of
+    :func:`expanded_attention_fused`, which has the same semantics), on
+    any device and ELL width; torch's autograd differentiates it."""
     q_s, kf = _scaled(q, k)
     return fused_attention_reference(q_s, kf, values, graph.ell_src,
                                      graph.ell_mask)
+
+
+def bsp_weighted_aggregate(weights: torch.Tensor, values: torch.Tensor,
+                           graph) -> torch.Tensor:
+    """out[v] = sum_j weights[v, j] * values[ell_src[v, j]], with gradients
+    for both. weights must already be 0 on masked slots (a softmax output,
+    or mask / deg for mean aggregation)."""
+    return WeightedAggregate.apply(weights.float(), values.contiguous(),
+                                   graph.ell_src, graph.ell_mask)
+
+
+def _mean_weights(ell_mask: torch.Tensor) -> torch.Tensor:
+    maskf = ell_mask.float()
+    return maskf / torch.clamp(maskf.sum(dim=1, keepdim=True), min=1.0)
+
+
+def bsp_mean(values: torch.Tensor, graph) -> torch.Tensor:
+    """Mean aggregation over in-neighbours through the SpMM kernel."""
+    return bsp_weighted_aggregate(_mean_weights(graph.ell_mask), values, graph)
+
+
+# --- high degree: the row-expanded view ---------------------------------------
+
+
+def _expand_graph(graph) -> tuple:
+    xp = graph.bsp_expanded
+    return (*expand_ell_view(graph.ell_src, graph.ell_mask, xp.rows, xp.width),
+            xp.rows, xp.width)
+
+
+def xp_weighted_aggregate(weights: torch.Tensor, values: torch.Tensor,
+                          ell_src: torch.Tensor, ell_mask: torch.Tensor,
+                          rows: int, width: int) -> torch.Tensor:
+    """:func:`bsp_weighted_aggregate` over the [V * rows, width] view of a
+    wide ELL layout: the SpMM of each expanded row, then the sum of each
+    node's R partials in f32. weights [V, deg], 0 on masked slots."""
+    V = ell_src.shape[0]
+    src_x, mask_x = expand_ell_view(ell_src, ell_mask, rows, width)
+    w_x = _expand_rows(weights.float(), rows, width)
+    out_x = WeightedAggregate.apply(w_x, values.contiguous(), src_x, mask_x)
+    return out_x.reshape(V, rows, -1).float().sum(dim=1).to(values.dtype)
+
+
+def expanded_weighted_aggregate(weights: torch.Tensor, values: torch.Tensor,
+                                graph) -> torch.Tensor:
+    """:func:`xp_weighted_aggregate` on the batch's expanded plan."""
+    xp = graph.bsp_expanded
+    return xp_weighted_aggregate(weights, values, graph.ell_src,
+                                 graph.ell_mask, xp.rows, xp.width)
+
+
+def expanded_mean(values: torch.Tensor, graph) -> torch.Tensor:
+    """Mean aggregation for ELL widths past 128."""
+    return expanded_weighted_aggregate(_mean_weights(graph.ell_mask), values,
+                                       graph)
+
+
+def expanded_attention(q: torch.Tensor, k: torch.Tensor,
+                       values: torch.Tensor, graph) -> torch.Tensor:
+    """Edge attention for ELL widths past 128 in two sweeps, as the JAX
+    package's ``expanded_attention``: the SDDMM of each expanded row, the
+    masked softmax on the logits folded to [V, R * W], the SpMM, then the
+    sum of each node's R partials. Same semantics as
+    :func:`expanded_attention_fused`, differentiable through
+    :class:`EdgeDot` and :class:`WeightedAggregate`."""
+    src_x, mask_x, rows, width = _expand_graph(graph)
+    V = q.shape[0]
+    q_s, kf = _scaled(q, k)
+    logits = EdgeDot.apply(q_s.repeat_interleave(rows, dim=0), kf, src_x,
+                           mask_x).reshape(V, rows * width)
+    alpha = R.ell_softmax(logits, mask_x.reshape(V, rows * width))
+    out_x = WeightedAggregate.apply(alpha.reshape(-1, width),
+                                    values.contiguous(), src_x, mask_x)
+    return out_x.reshape(V, rows, -1).float().sum(dim=1).to(values.dtype)
+
+
+def expanded_attention_fused(q: torch.Tensor, k: torch.Tensor,
+                             values: torch.Tensor, graph) -> torch.Tensor:
+    """One-pass edge attention for ELL widths past 128 (the dispatch path):
+    :func:`fused_attention_parts` over the expanded view and
+    :func:`xp_combine`, with a gradient for q, k and values. Same semantics
+    as :func:`bsp_attention_fused`."""
+    src_x, mask_x, rows, _ = _expand_graph(graph)
+    q_s, kf = _scaled(q, k)
+    return ExpandedFusedAttention.apply(q_s, kf, values.contiguous(), src_x,
+                                        mask_x, rows)

@@ -1,6 +1,7 @@
-// Shared device helpers of the ELL gather kernels (bsp_sddmm.cu,
-// bsp_spmm.cu, bsp_spmm_t.cu): 16-byte vector loads and stores with f32
-// arithmetic, warp reductions and the compaction of a row's valid slots.
+// Shared device code of the ELL gather kernels (bsp_fused_attention.cu,
+// bsp_fused_parts.cu, bsp_sddmm.cu, bsp_spmm.cu, bsp_spmm_t.cu, ell_max.cu):
+// 16-byte vector loads and stores with f32 arithmetic, warp reductions, the
+// compaction of a row's valid slots, and the body of the fused attention.
 
 #pragma once
 
@@ -13,6 +14,8 @@ namespace bsp {
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxDeg = 128;  // a row's slots are kept in shared memory
+constexpr int kMaxDk = 256;   // the fused attention keeps a row's query there
+constexpr float kNeg = -1e30f;  // the masked logit of the reference ops
 
 // VEC consecutive elements of T, converted to and from f32. VEC 8 reads
 // 32 bytes of f32 or 16 bytes of bf16 and needs the address aligned to 16
@@ -31,6 +34,17 @@ struct VecIO<float, 8> {
   __device__ static void store(float* p, const float* x) {
     reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
     reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+};
+
+template <>
+struct VecIO<float, 4> {
+  __device__ static void load(const float* p, float* x) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  __device__ static void store(float* p, const float* x) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   }
 };
 
@@ -77,27 +91,129 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // Run by all 32 lanes of one warp: writes the source node and the slot
-// index of row `row`'s valid slots, in slot order, to src_sh / slot_sh and
-// returns their count. Slot order fixes the order of every later sum, so
-// a kernel gives the same bits on every launch.
+// index of row `row`'s valid slots j, j_begin <= j < min(j_end, deg), in
+// slot order, to src_sh / slot_sh (slot_sh may be null) and returns their
+// count. Slot order fixes the order of every later sum, so a kernel gives
+// the same bits on every launch.
 __device__ __forceinline__ int compact_valid_slots(
     const int32_t* __restrict__ ell_src, const uint8_t* __restrict__ ell_mask,
-    long long row, int deg, int32_t* src_sh, int32_t* slot_sh) {
+    long long row, int deg, int32_t* src_sh, int32_t* slot_sh,
+    int j_begin = 0, int j_end = kMaxDeg) {
   const int lane = threadIdx.x & 31;
+  const int stop = j_end < deg ? j_end : deg;
   int base = 0;
-  for (int j0 = 0; j0 < deg; j0 += 32) {
+  for (int j0 = j_begin; j0 < stop; j0 += 32) {
     const int j = j0 + lane;
-    const bool valid = j < deg && ell_mask[row * deg + j] != 0;
+    const bool valid = j < stop && ell_mask[row * deg + j] != 0;
     const unsigned ballot = __ballot_sync(0xffffffffu, valid);
     if (valid) {
       const int at = base + __popc(ballot & ((1u << lane) - 1u));
       src_sh[at] = ell_src[row * deg + j];
-      slot_sh[at] = j;
+      if (slot_sh != nullptr) slot_sh[at] = j;
     }
     base += __popc(ballot);
   }
   return base;
+}
+
+// One block of the fused attention: ELL row blockIdx.x, features
+// [blockIdx.y * kMaxThreads * VEC, ...), kMaxThreads threads. q (already
+// scaled by 1/sqrt(dk)) and k are f32 [., dk]; values T [Vs, D].
+//
+// x_j = <q[row], k[src_j]> over the row's valid slots j, m = max(kNeg,
+// max_j x_j) (kNeg for a row with no valid slot), e_j = exp(x_j - max(m,
+// kNeg / 2)), l = sum_j e_j.
+//   kParts false: out[row] = sum_j (e_j / l) * values[src_j] in T (0 when
+//     l == 0): the fused attention (TO = T).
+//   kParts true: out[row] = sum_j e_j * values[src_j] in f32, not divided,
+//     and m_out[row] = m, l_out[row] = l (written by chunk 0): the raw
+//     online-softmax triple of the split-over-neighbours form (TO = float).
+// Each block recomputes its row's logits (deg x dk FMAs) rather than share
+// them with the row's other feature chunks through a second pass.
+template <typename T, typename TO, int VEC, bool kParts>
+__device__ __forceinline__ void fused_attention_row(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const T* __restrict__ values, const int32_t* __restrict__ ell_src,
+    const uint8_t* __restrict__ ell_mask, TO* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int deg, int dk,
+    long long D) {
+  __shared__ float q_sh[kMaxDk];
+  __shared__ int32_t src_sh[kMaxDeg];
+  __shared__ float w_sh[kMaxDeg];  // logits, then weights
+  __shared__ int n_sh;
+
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < dk; i += kMaxThreads) q_sh[i] = q[row * dk + i];
+  if (warp == 0) {
+    const int n = compact_valid_slots(ell_src, ell_mask, row, deg, src_sh,
+                                      nullptr);
+    if (lane == 0) n_sh = n;
+  }
+  __syncthreads();
+  const int n = n_sh;
+
+  // Logits, one warp per valid slot.
+  for (int s = warp; s < n; s += kMaxWarps) {
+    const float* kr = k + static_cast<long long>(src_sh[s]) * dk;
+    float acc = 0.f;
+    for (int d = lane; d < dk; d += 32) acc = fmaf(q_sh[d], kr[d], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) w_sh[s] = acc;
+  }
+  __syncthreads();
+
+  // Masked softmax weights over the valid slots, with the reference's
+  // guards: the max is floored at kNeg / 2, a zero sum gives weight 0.
+  if (warp == 0) {
+    float m = kNeg;
+    for (int s = lane; s < n; s += 32) m = fmaxf(m, w_sh[s]);
+    m = warp_max(m);
+    const float mg = fmaxf(m, kNeg / 2);
+    float l = 0.f;
+    for (int s = lane; s < n; s += 32) {
+      const float e = expf(w_sh[s] - mg);
+      w_sh[s] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (kParts) {
+      if (lane == 0 && blockIdx.y == 0) {
+        m_out[row] = m;
+        l_out[row] = l;
+      }
+    } else {
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      for (int s = lane; s < n; s += 32) w_sh[s] *= inv;
+    }
+  }
+  __syncthreads();
+
+  const long long f0 =
+      (static_cast<long long>(blockIdx.y) * kMaxThreads + tid) * VEC;
+  if (f0 >= D) return;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) {
+    const float a = w_sh[s];
+    float x[VEC];
+    VecIO<T, VEC>::load(values + static_cast<long long>(src_sh[s]) * D + f0, x);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a, x[i], acc[i]);
+  }
+  VecIO<TO, VEC>::store(out + row * D + f0, acc);
 }
 
 // Threads for a block that covers `lanes` positions of the feature axis:

@@ -25,7 +25,8 @@
 // values (8.4 MB) fit in the 50 MB L2, so most of those reads hit L2.
 //
 // Design against that bound: one block per (destination row, chunk of
-// 256 threads x 16 bytes of features). Each block compacts the row's valid
+// 256 threads x 16 bytes of features), the body in bsp_common.cuh
+// (fused_attention_row). Each block compacts the row's valid
 // slots into shared memory, computes their logits one warp per slot (q row
 // in shared memory, k rows gathered), reduces max and sum in one warp and
 // keeps alpha in shared memory. Each thread then streams its 16-byte
@@ -35,82 +36,16 @@
 // of one row recompute the row's logits (deg x dk FMAs, a few KB of k reads
 // from L2) instead of sharing them through a second pass.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bsp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDeg = 128;
-constexpr int kMaxDk = 256;
-constexpr float kNeg = -1e30f;
+using bsp::kMaxDeg;
+using bsp::kMaxDk;
+constexpr int kThreads = bsp::kMaxThreads;
 
-template <typename T, int VEC>
-struct VecIO;
-
-template <>
-struct VecIO<float, 4> {
-  __device__ static void load(const float* p, float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* x) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
-
-template <>
-struct VecIO<float, 1> {
-  __device__ static void load(const float* p, float* x) { x[0] = *p; }
-  __device__ static void store(float* p, const float* x) { *p = x[0]; }
-};
-
-template <>
-struct VecIO<__nv_bfloat16, 8> {
-  __device__ static void load(const __nv_bfloat16* p, float* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* x) {
-    uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = v;
-  }
-};
-
-template <>
-struct VecIO<__nv_bfloat16, 1> {
-  __device__ static void load(const __nv_bfloat16* p, float* x) {
-    x[0] = __bfloat162float(*p);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* x) {
-    *p = __float2bfloat16_rn(x[0]);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// grid (V, feature chunks), block kThreads.
+// grid (V, feature chunks), block kThreads; the body is shared with
+// bsp_fused_parts.cu (bsp_common.cuh).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 fused_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -118,78 +53,8 @@ fused_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const int32_t* __restrict__ ell_src,
                        const uint8_t* __restrict__ ell_mask,
                        T* __restrict__ out, int deg, int dk, long long D) {
-  __shared__ float q_sh[kMaxDk];
-  __shared__ int32_t src_sh[kMaxDeg];
-  __shared__ float w_sh[kMaxDeg];  // logits, then alpha
-  __shared__ int n_sh;
-
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int i = tid; i < dk; i += kThreads) q_sh[i] = q[row * dk + i];
-
-  // Compact the valid slots, in slot order, so the sums below run in the
-  // same order on every launch.
-  if (warp == 0) {
-    int base = 0;
-    for (int j0 = 0; j0 < deg; j0 += 32) {
-      const int j = j0 + lane;
-      const bool valid = j < deg && ell_mask[row * deg + j] != 0;
-      const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-      if (valid) {
-        src_sh[base + __popc(ballot & ((1u << lane) - 1u))] = ell_src[row * deg + j];
-      }
-      base += __popc(ballot);
-    }
-    if (lane == 0) n_sh = base;
-  }
-  __syncthreads();
-  const int n = n_sh;
-
-  // Logits, one warp per valid slot.
-  for (int s = warp; s < n; s += kWarps) {
-    const float* kr = k + static_cast<long long>(src_sh[s]) * dk;
-    float acc = 0.f;
-    for (int d = lane; d < dk; d += 32) acc = fmaf(q_sh[d], kr[d], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) w_sh[s] = acc;
-  }
-  __syncthreads();
-
-  // Masked softmax over the valid slots (the same guards as the plain
-  // version: the max is floored at kNeg / 2, a zero sum gives alpha 0).
-  if (warp == 0) {
-    float m = kNeg;
-    for (int s = lane; s < n; s += 32) m = fmaxf(m, w_sh[s]);
-    m = fmaxf(warp_max(m), kNeg / 2);
-    float l = 0.f;
-    for (int s = lane; s < n; s += 32) {
-      const float e = expf(w_sh[s] - m);
-      w_sh[s] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    for (int s = lane; s < n; s += 32) w_sh[s] *= inv;
-  }
-  __syncthreads();
-
-  const long long f0 = (static_cast<long long>(blockIdx.y) * kThreads + tid) * VEC;
-  if (f0 >= D) return;
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < n; ++s) {
-    const float a = w_sh[s];
-    float x[VEC];
-    VecIO<T, VEC>::load(values + static_cast<long long>(src_sh[s]) * D + f0, x);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a, x[i], acc[i]);
-  }
-  VecIO<T, VEC>::store(out + row * D + f0, acc);
+  bsp::fused_attention_row<T, T, VEC, false>(q, k, values, ell_src, ell_mask,
+                                             out, nullptr, nullptr, deg, dk, D);
 }
 
 template <typename T, int VEC>

@@ -6,13 +6,17 @@ kernel backend, which routes as the JAX Pallas backend does:
 
 - block-diagonal batches -> plain torch (dense einsums; the JAX package
   routes this league to XLA as well);
-- ELL with a tile-pair plan -> the fused attention kernel (``ops/bsp.py``),
-  whose backward runs the SDDMM, SpMM and transposed-SpMM kernels;
-- ELL width > 128 with a row-expanded plan -> not ported (raises);
-- ELL without a plan -> the plain ELL composition;
-- mean and max aggregation -> plain torch on CPU tensors; on CUDA tensors
-  they raise until they are wired to kernels (ROADMAP.md, queue B items 4
-  and 6), because the JAX Pallas backend runs kernels there.
+- attention, ELL with a tile-pair plan -> the fused attention kernel
+  (``ops/bsp.py``), whose backward runs the SDDMM, SpMM and
+  transposed-SpMM kernels;
+- attention, ELL width > 128 with a row-expanded plan -> the parts kernel
+  over the expanded view and its combine (``bsp.expanded_attention_fused``),
+  with the same backward kernels;
+- mean, ELL with a tile-pair plan -> the SpMM kernel (``bsp.bsp_mean``);
+  with a row-expanded plan -> the SpMM over the expanded view
+  (``bsp.expanded_mean``); the backward runs the transposed SpMM;
+- max, any ELL batch -> the masked max kernel (``ell.ell_max``);
+- ELL attention and mean without a plan -> the plain ELL composition.
 
 ``resolve_impl("auto", device)`` gives ``"pallas"`` for CUDA and ``"xla"``
 otherwise; on CPU tensors the kernel wrappers run their plain versions.
@@ -27,6 +31,7 @@ from typing import Callable
 import torch
 
 from mrp_gnn_tpu_torch.ops import bsp as B
+from mrp_gnn_tpu_torch.ops import ell as E
 from mrp_gnn_tpu_torch.ops import reference as R
 
 
@@ -71,29 +76,23 @@ def _plain_ops() -> EdgeOps:
                    _ell_attention_plain, _ell_mean_plain, _ell_max_plain)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} has no CUDA kernel yet (ROADMAP.md, queue B item {item}); "
-        "use ops_impl='xla' for the plain torch ops")
-
-
 def _kernel_ops() -> EdgeOps:
     def ell_attention(q, k, values, graph):
         if B.supports(graph):
             return B.bsp_attention_fused(q, k, values, graph)
-        if graph.bsp_expanded is not None:
-            raise _not_ported("attention over ELL width > 128", "7")
+        if B.supports_expanded(graph):
+            return B.expanded_attention_fused(q, k, values, graph)
         return _ell_attention_plain(q, k, values, graph)
 
     def ell_mean(values, graph):
-        if values.is_cuda and B.supports(graph):
-            raise _not_ported("mean aggregation (bsp_mean)", "4")
+        if B.supports(graph):
+            return B.bsp_mean(values, graph)
+        if B.supports_expanded(graph):
+            return B.expanded_mean(values, graph)
         return _ell_mean_plain(values, graph)
 
     def ell_max(values, graph):
-        if values.is_cuda:
-            raise _not_ported("max aggregation (ell_max)", "6")
-        return _ell_max_plain(values, graph)
+        return E.ell_max(values, graph.ell_src, graph.ell_mask)
 
     return EdgeOps(R.sddmm, R.segment_softmax, R.spmm, R.segment_mean_agg,
                    R.segment_max_agg,

@@ -5,8 +5,9 @@ One step runs the model forward, ``total_loss`` and the backward, then the
 optimizer of the JAX package: ``optax.chain(clip_by_global_norm,
 adamw(warmup_cosine_decay_schedule))``, written out here update for update
 (:class:`AdamW`). On the CUDA card, with ``ops_impl`` "auto" or "pallas",
-the graph attention and its backward run the hand-written kernels of
-``ops/bsp.py``.
+the fusion layer's sparse aggregations (attention at any ELL width, mean,
+max) and their backward run the hand-written kernels of ``ops/bsp.py`` and
+``ops/ell.py``.
 
 CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20
 

@@ -176,3 +176,123 @@ def test_fused_attention_grads_match_plain(dev, dtype):
            else dict(rtol=2e-2, atol=2e-2))
     for got, want in zip(*grads):
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _wide_graph():
+    """ELL width 200 in 256 slots (a row-expanded plan, 2 rows of 104):
+    duplicate edges, empty rows, a deg-200 row and a fully connected scene
+    of 140 robots (deg 139)."""
+    a = np.array([[1, 1, 2, 3, 0, 5, 5, 5], [0, 0, 0, 1, 2, 4, 4, 4]])
+    wide = np.stack([np.arange(200) % 12, np.zeros(200, np.int64)])
+    full = np.stack(np.nonzero(~np.eye(140, dtype=bool))[::-1])
+    sizes = [6, 12, 140]
+    return build_graph_batch([a, wide, full], sizes, max_nodes=256,
+                             max_edges=8 + 200 + 140 * 139)
+
+
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_parts_matches_plain(dev, D, dtype):
+    g = _wide_graph()
+    assert g.bsp_expanded is not None
+    g = g.to(dev)
+    xp = g.bsp_expanded
+    src_x, mask_x = bsp.expand_ell_view(g.ell_src, g.ell_mask, xp.rows,
+                                        xp.width)
+    q, k, v = _inputs(dev, 256, 64, 64, D, seed=7)
+    q_x = (q / 8.0).repeat_interleave(xp.rows, dim=0)
+    v = v.to(dtype)
+    before = bsp.fused_attention_parts.launches
+    acc, m, l = bsp.fused_attention_parts(q_x, k, v, src_x, mask_x)
+    assert bsp.fused_attention_parts.launches == before + 1
+    want = bsp.fused_attention_parts_reference(q_x, k, v, src_x, mask_x)
+    torch.cuda.synchronize()
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    # f32 sums of up to 100 weighted O(1) values in another order
+    for got, w in zip((acc, m, l), want):
+        torch.testing.assert_close(got, w, rtol=1e-5, atol=2e-5)
+    empty = ~mask_x.any(dim=1)
+    assert empty.any()
+    assert bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expanded_attention_grads_match_plain(dev, dtype):
+    """ExpandedFusedAttention (parts kernel, combine, backward kernels on
+    the expanded view) against torch autograd through the plain version."""
+    g = _wide_graph().to(dev)
+    q, k, v, ct = _inputs(dev, 256, 64, 64, 4096, 4096, seed=8)
+    outs, grads = [], []
+    for fn in (bsp.expanded_attention_fused, bsp.bsp_attention_fused_reference):
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vv = v.to(dtype).requires_grad_()
+        out = fn(qq, kk, vv, g)
+        (out.float() * ct).sum().backward()
+        outs.append(out)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    _assert_kernel_close(*outs)
+    assert bool((outs[0][~g.ell_mask.any(dim=1)] == 0).all())
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_mean_matches_plain(dev, graph):
+    """bsp_mean (square plan) and expanded_mean (row-expanded plan) with
+    their gradients against the plain mean on the card."""
+    from mrp_gnn_tpu_torch.ops import dispatch
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    V = g.max_nodes
+    v, ct = _inputs(dev, V, 2048, 2048, seed=9)
+    grads = []
+    for impl in ("pallas", "xla"):
+        vv = v.clone().requires_grad_()
+        out = dispatch.get_ops(impl).ell_mean(vv, g)
+        (out * ct).sum().backward()
+        grads.append((out, vv.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("D", [8192, 1030, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_ell_max_matches_plain_bit_for_bit(dev, D, dtype, graph):
+    from mrp_gnn_tpu_torch.ops import ell
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    (v,) = _inputs(dev, g.max_nodes, D, seed=10)
+    v = v.to(dtype)
+    before = ell.masked_max.launches
+    got = ell.masked_max(v, g.ell_src, g.ell_mask)
+    assert ell.masked_max.launches == before + 1 and got.dtype == dtype
+    want = ell.masked_max_reference(v, g.ell_src, g.ell_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # a max does not round
+    assert bool((got[~g.ell_mask.any(dim=1)] == 0).all())
+
+
+def test_ell_max_propagates_nan_and_its_gradient_matches_plain(dev):
+    """A NaN among a row's valid values gives NaN (jnp.maximum's rule), and
+    the gradient (plain torch on both devices) with ties among the valid
+    slots equals the CPU's within 1e-5 of its largest element: the card's
+    index_add_ sums the split shares in another order."""
+    from mrp_gnn_tpu_torch.ops import ell
+    g = _wide_graph().to(dev)
+    v, ct = _inputs(dev, g.max_nodes, 1024, 1024, seed=11)
+    v[3, 5] = float("nan")  # node 3 feeds node 1 of the first scene
+    out = ell.masked_max(v, g.ell_src, g.ell_mask)
+    assert bool(torch.isnan(out[1, 5])) and bool(torch.isfinite(out[0]).all())
+    v = v.nan_to_num().round()  # ties among the valid slots
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        vv = v.detach().to(d).requires_grad_()
+        out = ell.ell_max(vv, g.ell_src.to(d), g.ell_mask.to(d))
+        (out * ct.to(d)).sum().backward()
+        grads.append(vv.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-5 * float(grads[1].abs().max()))

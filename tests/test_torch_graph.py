@@ -1,5 +1,6 @@
 """The port's numpy graph builders give arrays bit-identical to the JAX
-package's (mrp_gnn_tpu_torch/graph.py vs mrp_gnn_tpu/graph.py)."""
+package's (mrp_gnn_tpu_torch/graph.py vs mrp_gnn_tpu/graph.py), the
+row-expanded plans for ELL widths past 128 included."""
 
 import dataclasses
 import warnings
@@ -21,11 +22,23 @@ ARRAY_FIELDS = ["edge_src", "edge_dst", "node_mask", "edge_mask",
                 "bsp_pair_first_t", "bsp_pair_last_t"]
 
 
+def assert_plan_equal(got, want):
+    """Row-expanded plans identical: rows, width and every pair array."""
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    assert (got.rows, got.width) == (want.rows, want.width)
+    for f in tg._PLAN_FIELDS:
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
+        assert np.array_equal(a, b), f
+
+
 def assert_graph_equal(got, want):
     """Every shared field identical: values, dtypes, None-ness, meta."""
     assert got.scene_stride == want.scene_stride
     assert got.bsp_tile == want.bsp_tile
-    assert got.bsp_expanded is None and want.bsp_expanded is None
+    assert_plan_equal(got.bsp_expanded, want.bsp_expanded)
     for f in ARRAY_FIELDS:
         a, b = getattr(got, f), getattr(want, f)
         assert (a is None) == (b is None), f
@@ -121,14 +134,84 @@ def test_pinned_high_degree_batch_matches_jax_without_plan():
 
 
 def test_unported_paths_raise():
+    """Only the native builder is left; a wide ELL layout builds its plan."""
     n = 140
     edges = tg.fully_connected_edges(n)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.build_graph_batch([edges], [n], max_nodes=256,
+    g = tg.build_graph_batch([edges], [n], max_nodes=256,
                              max_edges=edges.shape[1])
+    assert g.bsp_expanded is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tg.batch_from_positions([np.arange(4.0)], 1.0, max_nodes=8,
                                 max_edges=12, max_degree=3, backend="native")
+
+
+@pytest.mark.parametrize("n,V", [(130, 256), (193, 256), (257, 384),
+                                 (193, 512)])
+def test_expanded_plan_matches_jax(n, V):
+    """Unpinned plans of fully connected teams past the 128-column cap."""
+    edges = jg.fully_connected_edges(n)
+    got = tg.batch_homogeneous(1, n, edges, max_nodes=V)
+    want = jg.batch_homogeneous(1, n, edges, max_nodes=V)
+    assert got.bsp_expanded is not None and got.bsp_pair_dst is None
+    assert_graph_equal(got, want)
+    assert tg.expanded_ell_shape(got.ell_src.shape[1]) == (
+        got.bsp_expanded.rows, got.bsp_expanded.width)
+
+
+def test_pinned_expanded_plan_matches_jax_and_raises_past_its_cap():
+    """batch_from_positions(max_expanded_pairs=64): the same inert-padded
+    plan length for two topologies, bit-identical to JAX; a batch that
+    needs more pairs raises on both sides."""
+    rng = np.random.default_rng(0)
+    N, V = 140, 256
+    caps = dict(max_nodes=V, max_edges=N * (N - 1), max_degree=N - 1,
+                max_expanded_pairs=64)
+    for _ in range(2):
+        pos = [np.sort(rng.uniform(0, 30.0, size=N))]
+        got = tg.batch_from_positions(pos, 12.0, **caps)
+        assert_graph_equal(got, jg.batch_from_positions(pos, 12.0,
+                                                        backend="numpy",
+                                                        **caps))
+        assert got.bsp_expanded.pair_dst.shape == (64,)
+    pos = [np.sort(rng.uniform(0, 30.0, size=N))]
+    for builder in (tg.batch_from_positions,
+                    lambda *a, **k: jg.batch_from_positions(
+                        *a, backend="numpy", **k)):
+        with pytest.raises(ValueError, match="pairs exceed"):
+            builder(pos, 12.0, **{**caps, "max_expanded_pairs": 2})
+
+
+def test_hideg_warning_matches_jax():
+    """A pinned batch past the cap without max_expanded_pairs warns and gets
+    no plan; the opt-in and an unpinned static batch stay silent."""
+    rng = np.random.default_rng(0)
+    N, V = 140, 256
+    caps = dict(max_nodes=V, max_edges=N * (N - 1), max_degree=N - 1)
+    pos = [np.sort(rng.uniform(0, 30.0, size=N))]
+    for builder in (tg.batch_from_positions,
+                    lambda *a, **k: jg.batch_from_positions(
+                        *a, backend="numpy", **k)):
+        with pytest.warns(UserWarning, match="max_expanded_pairs"):
+            assert builder(pos, 12.0, **caps).bsp_expanded is None
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)
+            assert builder(pos, 12.0, max_expanded_pairs=64,
+                           **caps).bsp_expanded is not None
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        g = tg.batch_homogeneous(1, 193, tg.fully_connected_edges(193),
+                                 max_nodes=256)
+    assert g.bsp_expanded is not None
+
+
+def test_expanded_plan_heterogeneous_scenes_match_jax():
+    """Only some scenes pass the cap: one plan over the shared ELL width."""
+    sizes = [193, 50, 100]
+    edges = [jg.fully_connected_edges(n) for n in sizes]
+    caps = dict(max_nodes=384, max_edges=sum(n * (n - 1) for n in sizes))
+    got = tg.build_graph_batch(edges, sizes, **caps)
+    assert got.ell_src.shape[1] > 128 and got.bsp_expanded is not None
+    assert_graph_equal(got, jg.build_graph_batch(edges, sizes, **caps))
 
 
 def test_graph_to_device_keeps_every_field():
@@ -140,3 +223,14 @@ def test_graph_to_device_keeps_every_field():
         assert (a is None) == (b is None)
         if a is not None:
             assert np.array_equal(a.numpy(), b.numpy())
+
+
+def test_graph_to_device_moves_the_expanded_plan():
+    g = tg.batch_homogeneous(1, 130, tg.fully_connected_edges(130),
+                             max_nodes=256)
+    assert_plan_equal(g.to("cpu").bsp_expanded, g.bsp_expanded)
+    meta = g.to("meta").bsp_expanded
+    assert (meta.rows, meta.width) == (g.bsp_expanded.rows,
+                                       g.bsp_expanded.width)
+    assert all(getattr(meta, f).device.type == "meta"
+               for f in tg._PLAN_FIELDS)
