@@ -3,15 +3,20 @@ check them.
 
     python3 chip_smoke.py
 
-Four paths through the fusion layer, each at the full ``dynamic_swarm``
-width (64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32,
-numpy renderer, random seeded weights):
+Six paths through the fusion layer, each at the full width of a preset
+(64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, numpy
+renderer, random seeded weights):
 
-- attention: the preset itself (8 scenes x 32 drifting robots, a new radius
-  graph per batch, ELL width 32 with a tile-pair plan);
+- attention: ``dynamic_swarm`` itself (8 scenes x 32 drifting robots, a new
+  radius graph per batch, ELL width 32 with a tile-pair plan);
 - hideg attention: 2 fully connected scenes of 193 robots in 512 node
   slots (in-degree 192, a row-expanded plan of 2 rows x 96);
-- mean and max: the preset with ``model.fusion`` "mean" and "max".
+- mean and max: ``dynamic_swarm`` with ``model.fusion`` "mean" and "max";
+- block: ``multitask_batched`` (8 fully connected scenes of 5 robots, a
+  block-diagonal batch of 40 node slots), with the block attention kernel
+  swapped in through the model's ``edge_fusion_fn`` as bench.py swaps it;
+- ell: ``dynamic_swarm`` with the plan-free ELL attention (the ELL SDDMM,
+  softmax and SpMM kernels) swapped in the same way, the plan ignored.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -29,6 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    parts kernel at the hideg shapes and the masked max at the preset's, and
    both on a crafted graph with a degree-200 row (f32 and bf16; the max bit
    for bit, NaN in giving NaN out), with the gradients of their Functions;
+   the block attention at the JAX benchmark's shape (1,024 scenes of 8,
+   dk 64, D 2048), at the block path's and on 2 scenes of 256 with padded
+   nodes (f32 and bf16, with the gradients of its Function); the ELL
+   SDDMM, softmax and SpMM at the ell path's first train batch and on the
+   crafted graphs of degree 100 and 200, with their attention's gradients;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -37,11 +47,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the launches of every kernel per step, and against the same three steps
    with the plain ops on the card;
 6. timings (medians): each kernel beside its bound, its plain version and
-   a library yardstick; the Predictor's device-side batch latency and
-   whole-request latency; the train step's device time with the kernels
-   and with the plain ops, one whole step through ``train()`` (host clock,
-   data included; attention path), peak memory, and profiler breakdowns of
-   device time by kernel.
+   a library yardstick; the block kernel against the einsum route at the
+   benchmark's shape, forward and value gradient; the Predictor's
+   device-side batch latency and whole-request latency; the train step's
+   device time with the kernels and with the plain ops, one whole step
+   through ``train()`` (host clock, data included; attention path), peak
+   memory, and profiler breakdowns of device time by kernel.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -66,9 +77,11 @@ import torch.nn.functional as F
 from mrp_gnn_tpu_torch import train
 from mrp_gnn_tpu_torch.config import get_config
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
-from mrp_gnn_tpu_torch.graph import build_graph_batch
+from mrp_gnn_tpu_torch.graph import batch_fully_connected, build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
-from mrp_gnn_tpu_torch.ops import _build, bsp, ell
+from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
+from mrp_gnn_tpu_torch.ops import _build, bsp, edge, ell
+from mrp_gnn_tpu_torch.ops import reference as R
 from mrp_gnn_tpu_torch.serving import Predictor
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
@@ -82,8 +95,12 @@ TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
 # autograd rounds each slot's value gradient to bf16 before summing them.
 TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
-                      "spmm_t_kernel", "fused_parts_kernel", "ell_max_kernel")
+                      "spmm_t_kernel", "fused_parts_kernel", "ell_max_kernel",
+                      "ell_softmax_kernel", "block_attention_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
+# The edge block of the JAX package's benchmark (bench.py: V 8192 in
+# fully connected 8-robot scenes, D 2048, dk 64).
+BENCH_SCENES, BENCH_ROBOTS, BENCH_D, BENCH_DK = 1024, 8, 2048, 64
 
 
 def log(msg: str) -> None:
@@ -116,30 +133,54 @@ def cuda_ms(fn, reps: int = 15, inner: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 30) -> float:
-    """Device time per call of ``fn``: the device time of every kernel and
-    copy it launches, from the profiler (CUPTI), over ``n`` calls. Unlike
-    back-to-back CUDA events it leaves out the gaps in which the device
-    waits for the host, which dominate a call whose kernel takes
-    microseconds. A profiler session that records no device activity at
-    all (seen once on an H100) is repeated, at most twice."""
+def profiled(fn, n: int, tries: int = 5):
+    """(device activity by kernel, host-clock window in microseconds) of
+    ``n`` calls of ``fn`` under the profiler (CUPTI).
+
+    Each trace takes ``n`` warm-up calls before the ``n`` it keeps: on an
+    H100, traces without that warm-up lost the device activity of their
+    first calls (a kernel recorded 4 times in 30 calls, a first copy missing
+    in every breakdown, once no activity at all). A trace must see each
+    kernel and copy a whole number of times per call; one that does not is
+    repeated, at most ``tries`` times in all, and then this raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
-    for attempt in range(3):
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-        if busy > 0:
-            return busy / n / 1e3
-        log(f"[timing] profiler session {attempt + 1} saw no device time")
-    raise AssertionError("the profiler saw no device time")
+            prof.step()  # the warm-up ends, the kept calls start
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        kern = [e for e in prof.key_averages()  # less the step's own span
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]
+        if kern and all(e.count % n == 0 for e in kern):
+            return kern, wall_us
+        log(f"[timing] profiler trace {attempt + 1} missed device activity: "
+            f"{[(e.key[:40], e.count) for e in kern]} in {n} calls")
+    raise AssertionError(f"the profiler missed device activity in {tries} "
+                         "traces")
+
+
+def device_ms(fn, n: int = 30) -> float:
+    """Device time per call of ``fn``: the device time of every kernel and
+    copy it launches, from the profiler, over ``n`` calls (:func:`profiled`).
+    Unlike back-to-back CUDA events it leaves out the gaps in which the
+    device waits for the host, which dominate a call whose kernel takes
+    microseconds."""
+    kern, _ = profiled(fn, n)
+    return sum(e.self_device_time_total for e in kern) / n / 1e3
 
 
 def phase_device() -> dict:
@@ -213,15 +254,21 @@ def crafted_graph():
     return build_graph_batch([a, b], [6, 12], max_nodes=32, max_edges=128)
 
 
-def check_kernel_vs_plain(name, got, want, bf16: bool, scale: float = 1.0) -> float:
+def check_kernel_vs_plain(name, got, want, bf16: bool, scale: float = 1.0,
+                          of_largest: bool = False) -> float:
     """f32: max abs err <= TOL_F32 * scale, where ``scale`` is the size of
     the summed values (1 for weighted sums of O(1) values; sqrt(D) for a
-    D-long dot of O(1) products); bf16 outputs: one bf16 ulp."""
+    D-long dot of O(1) products); bf16 outputs: one bf16 ulp of each
+    element, or with ``of_largest`` of the largest element."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
                              f"plain {want.dtype} {tuple(want.shape)}")
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
-    if bf16:
+    if bf16 and of_largest:
+        limit = TOL_BF16_REL * float(want.float().abs().max())
+        ok = err <= limit
+        tol = f"atol {limit:.3g} (one bf16 ulp of the largest element)"
+    elif bf16:
         ok = torch.allclose(got.float(), want.float(), rtol=TOL_BF16_REL,
                             atol=1e-6)
         tol = f"rtol {TOL_BF16_REL} (one bf16 ulp)"
@@ -501,6 +548,144 @@ def phase_new_kernels(dev) -> dict:
     return {"inputs": x, "max_graph": gm, "max_values": v, "errs": errs}
 
 
+def kernel_swap(swap):
+    """An ``edge_fusion_fn``: ``default_edge_fusion`` over ``swap(ops)`` on
+    the kernel backend and over the ops as they are otherwise, as bench.py
+    swaps the block kernel in for ``ops_impl`` "pallas" only; so a path's
+    plain-ops runs stay plain."""
+    def edge_fusion(ops, aggregation, q, k, values, graph):
+        if ops.impl == "pallas":
+            ops = swap(ops)
+        return default_edge_fusion(ops, aggregation, q, k, values, graph)
+    return edge_fusion
+
+
+def block_config():
+    """multitask_batched at full width: 8 fully connected scenes of 5 robots
+    (a block-diagonal batch of 40 node slots), D 8192, 6 classes."""
+    cfg = get_config("multitask_batched")
+    return cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"))
+
+
+def check_block_batches(cfg) -> None:
+    """The block path's eval and train batches are block-diagonal, of one
+    scene stride: the number of robots."""
+    n = cfg.data.num_robots
+    for split in ("eval", "train"):
+        g = next(iter(make_dataset(cfg.data, split, shuffle=False)))["graph"]
+        if g.scene_stride != n or g.max_nodes != n * cfg.data.scenes_per_batch:
+            raise AssertionError(f"{split} batch: scene_stride "
+                                 f"{g.scene_stride}, {g.max_nodes} slots")
+    log(f"[kernel] {cfg.name} batches: scene_stride {n}, V {g.max_nodes}")
+
+
+def check_block(g, D: int, dk: int, seed: int, dev, tag: str,
+                errs: dict | None = None) -> dict:
+    """The block attention against its plain version on graph ``g`` (f32
+    and bf16 values; padded nodes give exactly 0), and its Function's
+    gradients. With bf16 values the kernel rounds its weights to bf16, and
+    a weight that the two round apart moves an output by one bf16 ulp of
+    that term: bf16 outputs are held to one bf16 ulp of the largest."""
+    q, k, v = attention_inputs(g.max_nodes, dk, D, seed, dev)
+    (ct,) = attention_inputs(g.max_nodes, 1, D, seed + 1, dev)[2:]
+    pad = ~g.node_mask
+    for dt in (torch.float32, torch.bfloat16):
+        vv = v.to(dt)
+        got = edge.block_fused_attention(q, k, vv, g)
+        want = edge.block_fused_attention_reference(q, k, vv, g)
+        torch.cuda.synchronize()
+        err = check_kernel_vs_plain(f"block_attention, {tag} values {dt}", got,
+                                    want, dt == torch.bfloat16, of_largest=True)
+        if not bool((got[pad] == 0).all()):
+            raise AssertionError("padded nodes must give exactly 0")
+        if errs is not None and dt == torch.float32:
+            errs["block_attention"] = err
+    x = {"graph": g, "q": q, "k": k, "v": v, "ct": ct}
+    check_function_grads(x, tag, edge.block_fused_attention, "BlockAttention",
+                         edge.block_fused_attention_reference)
+    return x
+
+
+def phase_block_kernels(dev) -> dict:
+    """The block attention at the benchmark's shape, at the block path's
+    (8 scenes of 5, D 8192) and on 2 scenes of 256 nodes with padded nodes
+    (D 1030: the scalar path; several passes of 8 destinations); a scene
+    past 256 nodes raises."""
+    errs = {}
+    g = batch_fully_connected(BENCH_SCENES, BENCH_ROBOTS).to(dev)
+    log(f"[kernel] benchmark edge block: V {g.max_nodes}, scene "
+        f"{g.scene_stride}, dk {BENCH_DK}, D {BENCH_D}")
+    x = check_block(g, BENCH_D, BENCH_DK, 21, dev, "benchmark", errs)
+    cfg = block_config()
+    m = cfg.model
+    hw = m.image_size[0] // m.bottleneck_stride
+    gb = batch_fully_connected(cfg.data.scenes_per_batch,
+                               cfg.data.num_robots).to(dev)
+    check_block(gb, hw * hw * m.encoder_channels[-1], m.attention_dim, 23,
+                dev, cfg.name)
+    big = batch_fully_connected(2, 256, max_nodes=768).to(dev)
+    check_block(big, 1030, 64, 25, dev, "2 scenes of 256 in 768 slots")
+    q = torch.zeros(514, 8, device=dev)
+    try:
+        edge.block_attention(q, q, q, torch.ones(514, dtype=torch.bool,
+                                                 device=dev),
+                             torch.ones(257, 257, device=dev))
+    except ValueError as e:
+        log(f"[kernel] block_attention, a scene of 257 nodes: raises ({e})")
+    else:
+        raise AssertionError("a scene past 256 nodes must raise")
+    return {"inputs": x, "errs": errs}
+
+
+def check_ell(g, D: int, dk: int, seed: int, dev, tag: str,
+              errs: dict | None = None) -> dict:
+    """The ELL SDDMM, softmax and SpMM against their plain versions on
+    graph ``g`` (f32 and bf16 values for the SpMM), and the gradients of
+    their attention against autograd through its plain version."""
+    x = backward_inputs(g, dk, D, seed, dev)
+    src, mask = g.ell_src, g.ell_mask
+    empty = ~mask.any(dim=1)
+    want_lo = bsp.sddmm_reference(x["q_s"], x["kf"], src, mask)
+    e1 = check_kernel_vs_plain(f"ell_sddmm, {tag}",
+                               ell.sddmm(x["q_s"], x["kf"], src, mask),
+                               want_lo, False)
+    alpha = ell.softmax(want_lo, mask)
+    e2 = check_kernel_vs_plain(f"ell_softmax, {tag}", alpha,
+                               bsp.masked_softmax(want_lo, mask), False)
+    if not bool((alpha[empty] == 0).all()):
+        raise AssertionError("ell_softmax: rows without a valid slot must be 0")
+    for dt in (torch.float32, torch.bfloat16):
+        v = x["v"].to(dt)
+        out = ell.spmm(x["alpha"], v, src, mask)
+        e3 = check_kernel_vs_plain(f"ell_spmm, {tag} values {dt}", out,
+                                   bsp.spmm_reference(x["alpha"], v, src, mask),
+                                   dt == torch.bfloat16)
+        if not bool((out[empty] == 0).all()):
+            raise AssertionError("ell_spmm: rows without a valid slot must be 0")
+        if errs is not None and dt == torch.float32:
+            errs.update(ell_sddmm=e1, ell_softmax=e2, ell_spmm=e3)
+    check_function_grads(x, tag, ell.ell_attention, "EllAttention",
+                         ell.ell_attention_reference)
+    return x
+
+
+def phase_ell_kernels(dev) -> dict:
+    """The ELL kernels at the ell path's first train batch, then on the
+    crafted graphs of degree 100 and 200 (two passes of 128 slots)."""
+    cfg = swarm_config()
+    m = cfg.model
+    hw = m.image_size[0] // m.bottleneck_stride
+    D, dk = hw * hw * m.encoder_channels[-1], m.attention_dim
+    g = next(iter(make_dataset(cfg.data, "train")))["graph"].to(dev)
+    errs = {}
+    x = check_ell(g, D, dk, 31, dev, "swarm train", errs)
+    for name, cg in (("crafted", crafted_graph()),
+                     ("crafted wide", crafted_wide_graph())):
+        for D_c in (1030, 4096):
+            check_ell(cg.to(dev), D_c, dk, 33, dev, f"{name} D {D_c}")
+    return {"inputs": x, "errs": errs}
+
+
 def _expected(per: dict) -> dict:
     """A launch count for every kernel: ``per``'s, 0 for the others."""
     unknown = set(per) - set(bsp.KERNELS)
@@ -518,7 +703,8 @@ def _plain(cfg):
                                                     ops_impl="xla"))
 
 
-def phase_serving(dev, cfg, per_request: dict, path: str) -> dict:
+def phase_serving(dev, cfg, per_request: dict, path: str,
+                  edge_fusion_fn=None) -> dict:
     """Three eval batches through ``Predictor`` with the kernels, each
     request checked for its kernel launches, then against the plain ops."""
     cfg_plain = _plain(cfg)
@@ -526,7 +712,8 @@ def phase_serving(dev, cfg, per_request: dict, path: str) -> dict:
     want = _expected(per_request)
     model = MultiRobotPerceptionNet(
         m, ops_impl=cfg.parallel.ops_impl,
-        generator=torch.Generator().manual_seed(0)).to(dev)
+        generator=torch.Generator().manual_seed(0),
+        edge_fusion_fn=edge_fusion_fn).to(dev)
     batches = []
     it = iter(make_dataset(cfg.data, "eval", shuffle=False))
     for _ in range(3):
@@ -576,14 +763,15 @@ def phase_serving(dev, cfg, per_request: dict, path: str) -> dict:
             "launches": launches, "depth_err": max_err}
 
 
-def phase_train(dev, cfg, per_step: dict, path: str) -> dict:
+def phase_train(dev, cfg, per_step: dict, path: str,
+                edge_fusion_fn=None) -> dict:
     """Three full-width train steps through the kernels, then the same three
     steps from the same weights through the plain ops, on the card."""
     cfg_plain = _plain(cfg)
     want = _expected(per_step)
     it = iter(make_dataset(cfg.data, "train"))
     inputs = [train.batch_to_device(next(it), dev) for _ in range(3)]
-    state = train.create_train_state(cfg, dev)
+    state = train.create_train_state(cfg, dev, edge_fusion_fn)
     plain_model = copy.deepcopy(state.model)
     step = train.make_train_step(cfg, state.model, state.optimizer)
     torch.cuda.synchronize()
@@ -717,7 +905,7 @@ def predictor_timings(serve: dict, tag: dict, path: str) -> None:
         req.append((time.perf_counter() - t0) * 1e3)
     req.sort()
     views = int(batch["graph"].n_nodes)
-    log(json.dumps({"metric": "predictor_batch", "config": "dynamic_swarm",
+    log(json.dumps({"metric": "predictor_batch", "config": serve["cfg"].name,
                     "path": path, "views_per_batch": views,
                     "node_slots": pred.batch_nodes,
                     "batch_latency_ms": lat * 1e3,
@@ -816,6 +1004,112 @@ def phase_new_kernel_timings(nk: dict, tag: dict) -> list:
         "[E, D] messages",
         bound_ms((vm, src, mask), (vm,), edges * vm.shape[1]),
         nk["errs"]["ell_max"], tag))
+    return out
+
+
+def phase_block_timings(bk: dict, tag: dict) -> list:
+    """The block kernel at the benchmark's shape (bf16, the benchmark's
+    type, in the kernels line; f32 logged beside it) against its bound, its
+    plain version and SDPA over [S, 1, n, .] with the scene mask; then the
+    A/B of the JAX benchmark's block league: the block path with the kernel
+    against the einsum route (``reference.block_fused_attention``, where
+    dispatch sends the block league), forward and value gradient."""
+    x = bk["inputs"]
+    g, q, k = x["graph"], x["q"], x["k"]
+    n = g.scene_stride
+    V = g.max_nodes
+    S = V // n
+    dk = q.shape[1]
+    # SDPA's additive mask of the same function: the scene adjacency and
+    # the valid sources, per scene; it scales q by 1/sqrt(dk) itself.
+    allowed = ((g.scene_adj > 0)[None] & g.node_mask.reshape(S, 1, n))[:, None]
+    out, ab = [], {}
+    for dt in (torch.bfloat16, torch.float32):
+        v = x["v"].to(dt)
+        D = v.shape[1]
+        q_s, kk = edge._kernel_inputs(q, k, v)
+        args = (q_s, kk, v, g.node_mask, g.scene_adj)
+        qb, kb, vb = (t.reshape(S, 1, n, -1) for t in (q.to(dt), kk, v))
+        entry = time_kernel(
+            "block_attention", "mrp_gnn_tpu_torch/ops/csrc/block_attention.cu",
+            "mrp_gnn_tpu/ops/pallas_edge.py:63",
+            {"V": V, "scene": n, "dk": dk, "D": D, "dtype": str(dt)},
+            lambda: edge.block_attention(*args),
+            lambda: edge.block_attention_reference(*args),
+            lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                   attn_mask=allowed),
+            "F.scaled_dot_product_attention on [S, 1, n, .], scene mask",
+            bound_ms((q_s, kk, v), (v,), 2 * V * n * (dk + D)),
+            bk["errs"]["block_attention"], tag)
+        if dt == torch.bfloat16:
+            out.append(entry)
+
+        def grad_of(fn, v=v):
+            leaf = v.detach().requires_grad_()
+            y = fn(q, k, leaf, g).float()
+            return torch.autograd.grad((y * y).sum(), leaf)
+
+        ab[str(dt)] = {
+            "forward_kernel_ms": device_ms(
+                lambda: edge.block_fused_attention(q, k, v, g)),
+            "forward_einsum_ms": device_ms(
+                lambda: R.block_fused_attention(q, k, v, g)),
+            "value_grad_kernel_ms": device_ms(
+                lambda: grad_of(edge.block_fused_attention)),
+            "value_grad_einsum_ms": device_ms(
+                lambda: grad_of(R.block_fused_attention))}
+    log(json.dumps({"metric": "block_league_ab", "shape": {
+        "V": V, "scene": n, "dk": dk, "D": x["v"].shape[1]}, "ab": ab,
+        "timing": "device time per call (profiler); value_grad: the "
+                  "gradient of sum(out ** 2) for the values, as bench.py's "
+                  "train chain", **tag}))
+    return out
+
+
+def phase_ell_timings(ek: dict, tag: dict) -> list:
+    """The three ELL kernels at the ell path's first train batch (f32)
+    beside their bounds, plain versions and library yardsticks."""
+    x = ek["inputs"]
+    g = x["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    V, deg = src.shape
+    edges = int(mask.sum())
+    rows = torch.arange(V, device=src.device)[:, None].expand(V, deg)[mask]
+    cols = src[mask].long()
+    q_s, kf, v, alpha = (x[n] for n in ("q_s", "kf", "v", "alpha"))
+    D, dk = v.shape[1], q_s.shape[1]
+    logits = bsp.sddmm_reference(q_s, kf, src, mask)
+    shape = {"V": V, "deg": deg, "edges": edges, "dtype": "float32"}
+    pattern = _csr(rows, cols, torch.ones(edges, device=src.device), (V, V))
+    kT = kf.t().contiguous()
+    a_csr = _csr(rows, cols, alpha[mask], (V, V))
+    filled = logits.masked_fill(~mask, bsp._NEG)
+    out = []
+    for name, src_file, replaces, shp, fn, plain, lib, lib_name, bound in (
+            ("ell_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
+             "mrp_gnn_tpu/ops/pallas_ell.py:268", {"d": dk},
+             lambda: ell.sddmm(q_s, kf, src, mask),
+             lambda: bsp.sddmm_reference(q_s, kf, src, mask),
+             lambda: torch.sparse.sampled_addmm(pattern, q_s, kT, beta=0.0),
+             "torch.sparse.sampled_addmm on the deduplicated [V, V] pattern",
+             bound_ms((q_s, kf, src, mask), (logits,), 2 * edges * dk)),
+            ("ell_softmax", "mrp_gnn_tpu_torch/ops/csrc/ell_softmax.cu",
+             "mrp_gnn_tpu/ops/pallas_ell.py:355", {},
+             lambda: ell.softmax(logits, mask),
+             lambda: bsp.masked_softmax(logits, mask),
+             lambda: torch.softmax(filled, dim=-1),
+             "torch.softmax of the logits filled with -1e30 on masked slots",
+             bound_ms((logits, mask), (logits,), 5 * V * deg)),
+            ("ell_spmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm.cu",
+             "mrp_gnn_tpu/ops/pallas_ell.py:47", {"D": D},
+             lambda: ell.spmm(alpha, v, src, mask),
+             lambda: bsp.spmm_reference(alpha, v, src, mask),
+             lambda: torch.sparse.mm(a_csr, v),
+             "torch.sparse.mm(CSR of the weights, values)",
+             bound_ms((alpha, v, src, mask), (v,), 2 * edges * D))):
+        out.append(time_kernel(name, src_file, replaces, {**shape, **shp}, fn,
+                               plain, lib, lib_name, bound, ek["errs"][name],
+                               tag))
     return out
 
 
@@ -919,7 +1213,7 @@ def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
     peak = torch.cuda.max_memory_allocated()
     V = int(x[3].n_nodes)
     step_ms = statistics.mean(times["kernels"])
-    log(json.dumps({"metric": "train_step", "config": "dynamic_swarm",
+    log(json.dumps({"metric": "train_step", "config": tr["cfg"].name,
                     "path": path, "views_per_step": V,
                     "node_slots": x[3].max_nodes,
                     "device_step_ms_kernels": times["kernels"],
@@ -934,7 +1228,7 @@ def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
         cfg = tr["cfg"].replace(train=dataclasses.replace(tr["cfg"].train,
                                                           log_every=1))
         _, records = train.train(cfg, num_steps=4, device=x[0].device)
-        log(json.dumps({"metric": "train_loop", "config": "dynamic_swarm",
+        log(json.dumps({"metric": "train_loop", "config": cfg.name,
                         "path": path,
                         "step_time_s": [r["step_time_s"] for r in records],
                         "views_per_s": [r["views_per_s"] for r in records],
@@ -947,27 +1241,13 @@ def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
 
 
 def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
-    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler,
-    CUPTI), and the share of the window with no device work (host clock,
-    profiler on)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = sorted(((e.key, e.self_device_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+    """Device time by kernel over ``n`` calls of ``fn`` (:func:`profiled`),
+    and the share of the window with no device work (host clock, profiler
+    on)."""
+    events, wall_us = profiled(fn, n)
+    kern = sorted(((e.key, e.self_device_time_total, e.count) for e in events),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
     ours = {}
     for key, t, _ in kern:
         for body in PORT_KERNEL_BODIES:
@@ -993,43 +1273,58 @@ def main() -> int:
         info = phase_device()
     tag = {"gpu": info["gpu"], "nvidia_smi": info["nvidia_smi"]}
     with phase("build"):
-        phase_build(list(bsp.KERNELS))
+        phase_build(list(bsp.SOURCES))
     with phase("kernels vs plain"):
         kin = phase_kernels(dev)
         tk = phase_train_kernels(dev)
         nk = phase_new_kernels(dev)
+        bk = phase_block_kernels(dev)
+        ek = phase_ell_kernels(dev)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
-    # path: (config, launches per request, launches per train step)
+    mb = block_config().model
+    hb = mb.num_fusion_layers * mb.attention_heads
+    check_block_batches(block_config())
+    ell_per = {"ell_sddmm": h, "ell_softmax": h, "ell_spmm": h}
+    # path: (config, launches per request, launches per train step,
+    # edge_fusion_fn)
     paths = {
         "attention": (swarm_config(), {"bsp_fused_attention": h},
                       {"bsp_fused_attention": h, "bsp_sddmm": h,
-                       "bsp_spmm": h, "bsp_spmm_t": 2 * h}),
+                       "bsp_spmm": h, "bsp_spmm_t": 2 * h}, None),
         "hideg": (hideg_config(), {"bsp_fused_parts": h},
                   {"bsp_fused_parts": h, "bsp_sddmm": h, "bsp_spmm": h,
-                   "bsp_spmm_t": 2 * h}),
+                   "bsp_spmm_t": 2 * h}, None),
         "mean": (swarm_config("mean"), {"bsp_spmm": L},
-                 {"bsp_spmm": L, "bsp_spmm_t": L}),
-        "max": (swarm_config("max"), {"ell_max": L}, {"ell_max": L}),
+                 {"bsp_spmm": L, "bsp_spmm_t": L}, None),
+        "max": (swarm_config("max"), {"ell_max": L}, {"ell_max": L}, None),
+        "block": (block_config(), {"block_attention": hb},
+                  {"block_attention": hb}, kernel_swap(edge.with_block_kernel)),
+        "ell": (swarm_config(), ell_per, ell_per,
+                kernel_swap(ell.with_ell_kernels)),
     }
     serve, tr = {}, {}
     with phase("serving"):
-        for path, (cfg, per_request, _) in paths.items():
-            serve[path] = phase_serving(dev, cfg, per_request, path)
+        for path, (cfg, per_request, _, fn) in paths.items():
+            serve[path] = phase_serving(dev, cfg, per_request, path, fn)
     with phase("training"):
-        for path, (cfg, _, per_step) in paths.items():
-            tr[path] = phase_train(dev, cfg, per_step, path)
+        for path, (cfg, _, per_step, fn) in paths.items():
+            tr[path] = phase_train(dev, cfg, per_step, path, fn)
     with phase("timings"):
         kernels = [phase_timings(kin, serve["attention"], tag)]
         kernels += phase_train_kernel_timings(tk, tag)
         kernels += phase_new_kernel_timings(nk, tag)
+        kernels += phase_block_timings(bk, tag)
+        kernels += phase_ell_timings(ek, tag)
         phase_train_timings(tr["attention"], tag)
-        for path in ("hideg", "mean", "max"):
+        for path in ("hideg", "mean", "max", "block", "ell"):
             predictor_timings(serve[path], tag, path)
             phase_train_timings(tr[path], tag, loop=False, inner=10)
     # Each kernel's launches come from the training path that runs it.
-    own_path = {"bsp_fused_parts": "hideg", "ell_max": "max"}
+    own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
+                "block_attention": "block", "ell_sddmm": "ell",
+                "ell_softmax": "ell", "ell_spmm": "ell"}
     for k in kernels:
         k["launches"] = tr[own_path.get(k["name"], "attention")]["launches"][k["name"]]
     log(f"[phase] total: {time.perf_counter() - t_start:.2f} s")

@@ -3,7 +3,8 @@
 
 SDDMM -> segment softmax -> SpMM over the batch graph, then a 1x1-conv fuse
 of ego features with the aggregated message. The edge ops come from
-``ops.dispatch`` by ``ops_impl``. Feature maps are NCHW here; the values are
+``ops.dispatch`` by ``ops_impl``; an ``edge_fusion_fn`` replaces the whole
+edge block, as in the JAX layer. Feature maps are NCHW here; the values are
 flattened in NHWC order before the edge block, as the JAX layer flattens
 them, so ``values`` [V, D] means the same thing in both packages.
 """
@@ -11,6 +12,8 @@ them, so ``values`` [V, D] means the same thing in both packages.
 from __future__ import annotations
 
 import math
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,12 +62,16 @@ class GraphFusionLayer(nn.Module):
 
     aggregation: "mean", "attention" or "max". With attention_heads > 1,
     each head scores and aggregates its own channel group.
+    edge_fusion_fn: optional replacement of :func:`default_edge_fusion`
+    with its signature ``(ops, aggregation, q, k, flat_values, graph) ->
+    msg [V, D]``, called once per head.
     """
 
     def __init__(self, channels: int, aggregation: str = "attention",
                  attention_dim: int = 64, attention_heads: int = 1,
                  norm_groups: int = 8, dtype: torch.dtype = torch.float32,
-                 ops_impl: str = "xla"):
+                 ops_impl: str = "xla",
+                 edge_fusion_fn: Callable | None = None):
         super().__init__()
         C = channels
         self.aggregation = aggregation
@@ -74,6 +81,7 @@ class GraphFusionLayer(nn.Module):
             raise ValueError(f"channels {C} not divisible by "
                              f"attention_heads={self.heads}")
         self.ops_impl = ops_impl
+        self.edge_fusion_fn = edge_fusion_fn
         self.value = Conv(C, C, 1, dtype=dtype)
         if aggregation == "attention":
             self.query = Dense(C, self.heads * attention_dim, dtype)
@@ -86,6 +94,7 @@ class GraphFusionLayer(nn.Module):
         """feats: [V, C, h, w] bottleneck maps -> fused [V, C, h, w]."""
         V, C, h, w = feats.shape
         ops = dispatch.get_ops(ops_impl or self.ops_impl, feats.device)
+        edge_fn = self.edge_fusion_fn or default_edge_fusion
         heads = self.heads
 
         # Values in NHWC order, the layout the JAX layer flattens.
@@ -104,16 +113,14 @@ class GraphFusionLayer(nn.Module):
             qh = q.reshape(V, heads, self.attention_dim)
             kh = k.reshape(V, heads, self.attention_dim)
             msg = torch.stack(
-                [default_edge_fusion(ops, "attention", qh[:, i].contiguous(),
-                                     kh[:, i].contiguous(),
-                                     vh[:, i].contiguous(), graph)
+                [edge_fn(ops, "attention", qh[:, i].contiguous(),
+                         kh[:, i].contiguous(), vh[:, i].contiguous(), graph)
                  for i in range(heads)], dim=1)
             msg = msg.reshape(V, heads, h * w, C // heads)
             msg = msg.transpose(1, 2).reshape(V, h, w, C)
         else:
             flat_values = values.reshape(V, h * w * C)
-            msg = default_edge_fusion(ops, self.aggregation, q, k,
-                                      flat_values, graph)
+            msg = edge_fn(ops, self.aggregation, q, k, flat_values, graph)
             msg = msg.reshape(V, h, w, C)
         msg = msg.permute(0, 3, 1, 2).to(feats.dtype)
         # Fuse ego features with the aggregated neighbourhood message.

@@ -10,6 +10,8 @@ layers compute in bfloat16.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import nn
 
@@ -26,10 +28,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class MultiRobotPerceptionNet(nn.Module):
     """The whole model, with flax-like seeded init from ``generator``
-    (parameters are made on the CPU; move the model with ``.to(device)``)."""
+    (parameters are made on the CPU; move the model with ``.to(device)``).
+    ``edge_fusion_fn`` goes to every fusion layer (see
+    :class:`GraphFusionLayer`); None keeps the default edge block."""
 
     def __init__(self, config: ModelConfig, ops_impl: str = "xla",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 edge_fusion_fn: Callable | None = None):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -45,7 +50,8 @@ class MultiRobotPerceptionNet(nn.Module):
                 chans[-1], aggregation=cfg.fusion,
                 attention_dim=cfg.attention_dim,
                 attention_heads=cfg.attention_heads,
-                norm_groups=cfg.norm_groups, dtype=dtype, ops_impl=ops_impl))
+                norm_groups=cfg.norm_groups, dtype=dtype, ops_impl=ops_impl,
+                edge_fusion_fn=edge_fusion_fn))
         self.decoder = Decoder(chans, cfg.norm_groups, dtype)
         c0 = self.decoder.out_channels
         if cfg.predict_depth:

@@ -1,4 +1,4 @@
 """Graph message-passing ops: plain torch implementations (``reference``)
-and CUDA kernels (``bsp`` and ``ell``, sources in ``csrc/``). Dispatch between them
-with :func:`mrp_gnn_tpu_torch.ops.dispatch.get_ops`.
+and CUDA kernels (``bsp``, ``ell`` and ``edge``, sources in ``csrc/``).
+Dispatch between them with :func:`mrp_gnn_tpu_torch.ops.dispatch.get_ops`.
 """

@@ -28,25 +28,46 @@ plans only mark the batches they serve (``supports``,
 
 Each kernel has a wrapper and a plain torch version beside it. A wrapper
 runs the plain version for CPU tensors; for CUDA tensors it launches the
-kernel or raises, and counts each launch in ``<wrapper>.launches``.
+kernel or raises, and counts each launch in ``<wrapper>.launches``. The
+SpMM and SDDMM kernels take any ELL width; the plan-free ELL path of
+``ops/ell.py`` launches them through wrappers of its own.
+:func:`launch_counts` gives the counts of every wrapper of the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
 import math
 
 import torch
 
-from mrp_gnn_tpu_torch.ops import _build, ell
+from mrp_gnn_tpu_torch.ops import _build
 from mrp_gnn_tpu_torch.ops import reference as R
 
 _NEG = -1e30
-MAX_DEGREE = 128  # the kernels keep a row's slots in shared memory
+MAX_DEGREE = 128  # the fused kernels keep a row's slots in shared memory
 MAX_DK = 256      # the fused kernels keep a row's query in shared memory
 _KERNEL = "bsp_fused_attention"
-KERNELS = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
-           "bsp_fused_parts", "ell_max")
+# The CUDA sources of the port (csrc/<name>.cu).
+SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
+           "bsp_fused_parts", "ell_max", "ell_softmax", "block_attention")
+# Launch counts by wrapper: name -> (module of mrp_gnn_tpu_torch.ops,
+# wrapper). ell_spmm and ell_sddmm launch bsp_spmm.cu and bsp_sddmm.cu, and
+# count apart from bsp_spmm and bsp_sddmm.
+_WRAPPERS = {
+    "bsp_fused_attention": ("bsp", "fused_attention"),
+    "bsp_sddmm": ("bsp", "sddmm"),
+    "bsp_spmm": ("bsp", "spmm"),
+    "bsp_spmm_t": ("bsp", "spmm_t"),
+    "bsp_fused_parts": ("bsp", "fused_attention_parts"),
+    "ell_max": ("ell", "masked_max"),
+    "ell_sddmm": ("ell", "sddmm"),
+    "ell_softmax": ("ell", "softmax"),
+    "ell_spmm": ("ell", "spmm"),
+    "block_attention": ("edge", "block_attention"),
+}
+KERNELS = tuple(_WRAPPERS)
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -165,8 +186,10 @@ def _vec8(*tensors) -> bool:
                for t in tensors)
 
 
-def _check_cuda(kernel: str, ell_src, ell_mask, **tensors) -> None:
-    """Device, layout and index checks shared by the wrappers."""
+def _check_cuda(kernel: str, ell_src, ell_mask,
+                max_deg: int | None = MAX_DEGREE, **tensors) -> None:
+    """Device, layout and index checks shared by the wrappers; ELL widths
+    past ``max_deg`` raise (None: any width)."""
     dev = ell_src.device
     if dev.type != "cuda":
         raise RuntimeError(f"no {kernel} kernel for {dev}")
@@ -184,8 +207,8 @@ def _check_cuda(kernel: str, ell_src, ell_mask, **tensors) -> None:
                          f"{tuple(ell_mask.shape)} must be one [V, deg] shape")
     if not (ell_src.is_contiguous() and ell_mask.is_contiguous()):
         raise ValueError("ell_src and ell_mask must be contiguous")
-    if ell_src.shape[1] > MAX_DEGREE:
-        raise ValueError(f"{kernel} takes deg <= {MAX_DEGREE}, got "
+    if max_deg is not None and ell_src.shape[1] > max_deg:
+        raise ValueError(f"{kernel} takes deg <= {max_deg}, got "
                          f"{ell_src.shape[1]}")
 
 
@@ -328,12 +351,24 @@ def sddmm(a1: torch.Tensor, b1: torch.Tensor, ell_src: torch.Tensor,
 
     Returns out1 [V, deg] f32, or (out1, out2) in the dual form.
     """
-    dual = a2 is not None
     if ell_src.device.type == "cpu":
         out1 = sddmm_reference(a1, b1, ell_src, ell_mask)
-        return (out1, sddmm_reference(a2, b2, ell_src, ell_mask)) if dual else out1
+        if a2 is None:
+            return out1
+        return out1, sddmm_reference(a2, b2, ell_src, ell_mask)
+    return run_sddmm(sddmm, a1, b1, ell_src, ell_mask, a2, b2)
+
+
+sddmm.launches = 0
+
+
+def run_sddmm(counter, a1, b1, ell_src, ell_mask, a2=None, b2=None):
+    """Check CUDA inputs and launch ``bsp_sddmm.cu`` (any ELL width),
+    counting the launch in ``counter.launches``: :func:`sddmm` without the
+    plain path."""
+    dual = a2 is not None
     pairs = dict(a1=a1, b1=b1, **(dict(a2=a2, b2=b2) if dual else {}))
-    _check_cuda("bsp_sddmm", ell_src, ell_mask, **pairs)
+    _check_cuda("bsp_sddmm", ell_src, ell_mask, max_deg=None, **pairs)
     V, deg = ell_src.shape
     _check_pair(a1, b1, V)
     if dual:
@@ -351,19 +386,26 @@ def sddmm(a1: torch.Tensor, b1: torch.Tensor, ell_src: torch.Tensor,
             ell_src.data_ptr(), ell_mask.data_ptr(), out1.data_ptr(),
             out2.data_ptr() if dual else None, V, deg, a1.device.index,
             _build.stream(a1))
-        sddmm.launches += 1
+        counter.launches += 1
     return (out1, out2) if dual else out1
-
-
-sddmm.launches = 0
 
 
 def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
          ell_mask: torch.Tensor) -> torch.Tensor:
-    """Kernel wrapper, same contract as :func:`spmm_reference`."""
+    """Kernel wrapper, same contract as :func:`spmm_reference`, any ELL
+    width."""
     if x.device.type == "cpu":
         return spmm_reference(w, x, ell_src, ell_mask)
-    _check_cuda("bsp_spmm", ell_src, ell_mask, w=w, x=x)
+    return run_spmm(spmm, w, x, ell_src, ell_mask)
+
+
+spmm.launches = 0
+
+
+def run_spmm(counter, w, x, ell_src, ell_mask):
+    """Check CUDA inputs and launch ``bsp_spmm.cu``, counting the launch
+    in ``counter.launches``: :func:`spmm` without the plain path."""
+    _check_cuda("bsp_spmm", ell_src, ell_mask, max_deg=None, w=w, x=x)
     if w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES:
         raise TypeError(f"w must be float32 and x float32 or bfloat16, got "
                         f"{w.dtype} and {x.dtype}")
@@ -380,11 +422,8 @@ def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
                ell_mask.data_ptr(), out.data_ptr(), V, deg, x.shape[1],
                int(x.dtype == torch.bfloat16), 8 if _vec8(x, out) else 1,
                x.device.index, _build.stream(x))
-    spmm.launches += 1
+    counter.launches += 1
     return out
-
-
-spmm.launches = 0
 
 
 def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
@@ -432,19 +471,23 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
 spmm_t.launches = 0
 
 
-_WRAPPERS = (fused_attention, sddmm, spmm, spmm_t, fused_attention_parts,
-             ell.masked_max)  # in the order of KERNELS
+def _wrapper(name: str):
+    """The wrapper counted under ``name``, looked up at call time, so a
+    wrapper replaced on its module is the one counted."""
+    module, attr = _WRAPPERS[name]
+    return getattr(importlib.import_module(f"mrp_gnn_tpu_torch.ops.{module}"),
+                   attr)
 
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    for name in KERNELS:
+        _wrapper(name).launches = 0
 
 
 def launch_counts() -> dict:
-    """Launch count of each kernel, by its source name."""
-    return {name: fn.launches for name, fn in zip(KERNELS, _WRAPPERS)}
+    """Launch count of each kernel wrapper, by its name in KERNELS."""
+    return {name: _wrapper(name).launches for name in KERNELS}
 
 
 # --- autograd ------------------------------------------------------------------

@@ -1,7 +1,8 @@
-// Shared device code of the ELL gather kernels (bsp_fused_attention.cu,
-// bsp_fused_parts.cu, bsp_sddmm.cu, bsp_spmm.cu, bsp_spmm_t.cu, ell_max.cu):
-// 16-byte vector loads and stores with f32 arithmetic, warp reductions, the
-// compaction of a row's valid slots, and the body of the fused attention.
+// Shared device code of the port's kernels (bsp_fused_attention.cu,
+// bsp_fused_parts.cu, bsp_sddmm.cu, bsp_spmm.cu, bsp_spmm_t.cu, ell_max.cu,
+// ell_softmax.cu, block_attention.cu): 16-byte vector loads and stores with
+// f32 arithmetic, warp reductions, the compaction of a row's valid slots,
+// and the body of the fused attention.
 
 #pragma once
 

@@ -7,13 +7,16 @@
 //
 // summed in f32 over the feature axis; a masked slot gives 0. Each operand
 // is f32 or bf16 on its own, so a pair may mix them (an f32 cotangent
-// against bf16 values).
+// against bf16 values). The ELL width deg may be any size.
 //
 // Replaces: mrp_gnn_tpu/ops/pallas_bsp.py::_sddmm_kernel (launched by
 // _sddmm_forward) and ::_sddmm2_kernel (launched by _sddmm2_forward, the
-// dual form). The TPU kernels take one [Tv, D] x [D, Ts] MXU product per
-// (dst tile, src tile) pair of the plan, then pick each slot's column with
-// one-hot selections. The training step launches this kernel once, in the
+// dual form), and in the single form mrp_gnn_tpu/ops/pallas_ell.py::
+// _sddmm_kernel (launched by _sddmm_forward there; wrapper
+// ops/ell.py::sddmm, which counts its launches apart). The BSP kernels take
+// one [Tv, D] x [D, Ts] MXU product per (dst tile, src tile) pair of the
+// plan, then pick each slot's column with one-hot selections; the ELL
+// kernel DMAs each slot's key row and unrolls over the width. The training step launches this kernel once, in the
 // dual form: (q_s, k) recomputes the attention logits and (g, values)
 // gives dalpha. At the full dynamic_swarm width the JAX package runs that
 // as three _sddmm_kernel sweeps (its VMEM gate refuses the dual kernel and
@@ -26,11 +29,12 @@
 // in-edge (about 6.6 times), mostly from the 50 MB L2.
 //
 // Design: one block per destination row. Warp 0 compacts the row's valid
-// slots into shared memory in slot order; then, slot after slot, every
-// thread takes its share of the feature axis (16-byte loads where the rows
-// allow) for both pairs, the warps reduce with shuffles and write one
-// partial per warp to shared memory. One pass at the end sums the warps'
-// partials in a fixed order, so every launch gives the same bits.
+// slots into shared memory in slot order, 128 at a time (so any width fits
+// in 9 KB of shared memory); then, slot after slot, every thread takes its
+// share of the feature axis (16-byte loads where the rows allow) for both
+// pairs, the warps reduce with shuffles and write one partial per warp to
+// shared memory. One pass after each 128 slots sums the warps' partials in
+// a fixed order, so every launch gives the same bits.
 
 #include "bsp_common.cuh"
 
@@ -100,41 +104,45 @@ sddmm_kernel(const void* __restrict__ a1, const void* __restrict__ b1, int d1,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid < 32) {
-    const int n = bsp::compact_valid_slots(ell_src, ell_mask, row, deg,
-                                           src_sh, slot_sh);
-    if (tid == 0) n_sh = n;
-  }
   for (int j = tid; j < deg; j += blockDim.x) {
     if (ell_mask[row * deg + j] == 0) {
       out1[row * deg + j] = 0.f;
       if (d2 > 0) out2[row * deg + j] = 0.f;
     }
   }
-  __syncthreads();
-  const int n = n_sh;
-
-  for (int s = 0; s < n; ++s) {
-    const long long src = src_sh[s];
-    const float p1 = bsp::warp_sum(partial_dot(a1, b1, row, src, d1, flags1));
-    float p2 = 0.f;
-    if (d2 > 0) p2 = bsp::warp_sum(partial_dot(a2, b2, row, src, d2, flags2));
-    if (lane == 0) {
-      red1[warp][s] = p1;
-      red2[warp][s] = p2;
-    }
-  }
-  __syncthreads();
-
   const int warps = blockDim.x >> 5;
-  for (int s = tid; s < n; s += blockDim.x) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      t1 += red1[w][s];
-      t2 += red2[w][s];
+  for (int j0 = 0; j0 < deg; j0 += kMaxDeg) {
+    if (tid < 32) {
+      const int n = bsp::compact_valid_slots(ell_src, ell_mask, row, deg,
+                                             src_sh, slot_sh, j0,
+                                             j0 + kMaxDeg);
+      if (tid == 0) n_sh = n;
     }
-    out1[row * deg + slot_sh[s]] = t1;
-    if (d2 > 0) out2[row * deg + slot_sh[s]] = t2;
+    __syncthreads();
+    const int n = n_sh;
+
+    for (int s = 0; s < n; ++s) {
+      const long long src = src_sh[s];
+      const float p1 = bsp::warp_sum(partial_dot(a1, b1, row, src, d1, flags1));
+      float p2 = 0.f;
+      if (d2 > 0) p2 = bsp::warp_sum(partial_dot(a2, b2, row, src, d2, flags2));
+      if (lane == 0) {
+        red1[warp][s] = p1;
+        red2[warp][s] = p2;
+      }
+    }
+    __syncthreads();
+
+    for (int s = tid; s < n; s += blockDim.x) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        t1 += red1[w][s];
+        t2 += red2[w][s];
+      }
+      out1[row * deg + slot_sh[s]] = t1;
+      if (d2 > 0) out2[row * deg + slot_sh[s]] = t2;
+    }
+    __syncthreads();  // the slots and partials are rewritten by the next 128
   }
 }
 
@@ -146,14 +154,14 @@ int lanes_for(int d, int flags) {
 
 // flags1 / flags2: bit 0 a is bf16, bit 1 b is bf16, bit 2 16-byte loads
 // (d a multiple of 8, rows 16-byte aligned). d2 == 0 (a2, b2, out2 unused)
-// is the single form. Returns the CUDA error code of the launch (0 on
-// success).
+// is the single form. deg may be any width. Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int bsp_sddmm(const void* a1, const void* b1, int d1, int flags1,
                          const void* a2, const void* b2, int d2, int flags2,
                          const int32_t* ell_src, const uint8_t* ell_mask,
                          float* out1, float* out2, int V, int deg, int device,
                          void* stream) {
-  if (V <= 0 || deg <= 0 || deg > kMaxDeg || d1 <= 0 || d2 < 0)
+  if (V <= 0 || deg <= 0 || d1 <= 0 || d2 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -7,24 +7,31 @@
 // w is f32 [V, deg]; x f32 or bf16 [Vs, D]; the output [V, D] takes x's
 // type, with f32 sums. A masked slot contributes nothing whatever its
 // weight, a duplicate edge counts once per slot, and a row with no valid
-// slot gives 0.
+// slot gives 0. The ELL width deg may be any size.
 //
 // Replaces: mrp_gnn_tpu/ops/pallas_bsp.py::_spmm_kernel (launched by
-// _spmm_forward). The TPU kernel walks the (dst tile, src tile) pair plan,
+// _spmm_forward) and mrp_gnn_tpu/ops/pallas_ell.py::_spmm_kernel (launched
+// by _spmm_forward there; wrapper ops/ell.py::spmm, which counts its
+// launches apart). The BSP kernel walks the (dst tile, src tile) pair plan,
 // builds a one-hot [Tv, Ts] weight matrix column by column and applies it
-// on the MXU; those are workarounds for Mosaic's whole-tile DMAs. Here each
-// block gathers its rows straight from ell_src. In the training step it
-// gives dq of the fused attention's backward (w = dlog, x = k, D = dk).
+// on the MXU; the ELL kernel DMAs each slot's row into a double buffer and
+// unrolls over the width. Both are workarounds for Mosaic's whole-tile
+// DMAs. Here each block gathers its rows straight from ell_src. In the
+// training step it gives dq of the fused attention's backward (w = dlog,
+// x = k, D = dk); on the plan-free ELL path the attention's weighted sum.
 //
 // Bound: bytes. The function reads w, x, ell_src and ell_mask once and
 // writes out once; its FMAs are 2 x edges x D, far below the f32 rate. At
 // dq's shape (V 256, deg 32, D 64) that is under 200 KB, well under a
-// microsecond of HBM time, so launch and latency set the time.
+// microsecond of HBM time, so launch and latency set the time. On the ELL
+// path at D 8192 (f32) it is 16.8 MB, 0.005 ms at 3.35 TB/s; the gathers
+// read each value row once per in-edge, mostly from the 50 MB L2.
 //
 // Design: one block per (destination row, chunk of the feature axis). Warp
 // 0 compacts the row's valid slots and their weights into shared memory in
-// slot order (a fixed sum order, so every launch gives the same bits); each
-// thread then streams its VEC features of every valid source row with
+// slot order, 128 slots at a time, so a row of any width needs 1.5 KB of
+// shared memory (a fixed sum order, so every launch gives the same bits);
+// each thread then streams its VEC features of every valid source row with
 // 16-byte loads and f32 FMAs and writes them once. The block is only as
 // wide as the feature axis needs (at least one warp), so a narrow D does
 // not leave most of 256 threads idle.
@@ -50,31 +57,36 @@ spmm_kernel(const float* __restrict__ w, const T* __restrict__ x,
 
   const long long row = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid < 32) {
-    const int n = bsp::compact_valid_slots(ell_src, ell_mask, row, deg,
-                                           src_sh, slot_sh);
-    if (tid == 0) n_sh = n;
-  }
-  __syncthreads();
-  const int n = n_sh;
-  for (int s = tid; s < n; s += blockDim.x) w_sh[s] = w[row * deg + slot_sh[s]];
-  __syncthreads();
-
   const long long f0 =
       (static_cast<long long>(blockIdx.y) * blockDim.x + tid) * VEC;
-  if (f0 >= D) return;
+  const bool active = f0 < D;
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < deg; j0 += kMaxDeg) {
+    if (tid < 32) {
+      const int n = bsp::compact_valid_slots(ell_src, ell_mask, row, deg,
+                                             src_sh, slot_sh, j0,
+                                             j0 + kMaxDeg);
+      if (tid == 0) n_sh = n;
+    }
+    __syncthreads();
+    const int n = n_sh;
+    for (int s = tid; s < n; s += blockDim.x) w_sh[s] = w[row * deg + slot_sh[s]];
+    __syncthreads();
+    if (active) {
 #pragma unroll 4
-  for (int s = 0; s < n; ++s) {
-    const float a = w_sh[s];
-    float xv[VEC];
-    VecIO<T, VEC>::load(x + static_cast<long long>(src_sh[s]) * D + f0, xv);
+      for (int s = 0; s < n; ++s) {
+        const float a = w_sh[s];
+        float xv[VEC];
+        VecIO<T, VEC>::load(x + static_cast<long long>(src_sh[s]) * D + f0, xv);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a, xv[i], acc[i]);
+        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a, xv[i], acc[i]);
+      }
+    }
+    __syncthreads();  // the slots are rewritten by the next 128
   }
-  VecIO<T, VEC>::store(out + row * D + f0, acc);
+  if (active) VecIO<T, VEC>::store(out + row * D + f0, acc);
 }
 
 template <typename T, int VEC>
@@ -95,13 +107,13 @@ cudaError_t launch(const float* w, const void* x, const int32_t* ell_src,
 }  // namespace
 
 // x_bf16: 0 for f32 x and output, 1 for bf16. vec: 8 needs D a multiple of
-// 8 and 16-byte aligned x and out; 1 takes any D. Returns the CUDA error
-// code of the launch (0 on success).
+// 8 and 16-byte aligned x and out; 1 takes any D. deg may be any width.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int bsp_spmm(const float* w, const void* x, const int32_t* ell_src,
                         const uint8_t* ell_mask, void* out, int V, int deg,
                         long long D, int x_bf16, int vec, int device,
                         void* stream) {
-  if (V <= 0 || D <= 0 || deg < 0 || deg > kMaxDeg)
+  if (V <= 0 || D <= 0 || deg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -117,12 +117,15 @@ class TrainState:
     best_step: int = -1
 
 
-def create_train_state(cfg: ExperimentConfig, device) -> TrainState:
+def create_train_state(cfg: ExperimentConfig, device,
+                       edge_fusion_fn: Callable | None = None) -> TrainState:
     """Model with seeded random weights (``cfg.train.seed``) on ``device``,
-    and its optimizer."""
+    and its optimizer; ``edge_fusion_fn`` goes to the model's fusion
+    layers."""
     model = MultiRobotPerceptionNet(
         cfg.model, ops_impl=cfg.parallel.ops_impl,
-        generator=torch.Generator().manual_seed(cfg.train.seed)).to(device)
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        edge_fusion_fn=edge_fusion_fn).to(device)
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 

@@ -296,3 +296,120 @@ def test_ell_max_propagates_nan_and_its_gradient_matches_plain(dev):
         grads.append(vv.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
                                atol=1e-5 * float(grads[1].abs().max()))
+
+
+def _assert_block_close(got, want):
+    """f32: 2e-5; bf16: one bf16 ulp of the largest element (the kernel and
+    the plain version may round a weight to bf16 apart)."""
+    if got.dtype == torch.bfloat16:
+        limit = 2.0 ** -7 * float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= limit
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("scenes,robots,slots,D", [
+    (16, 8, None, 2048), (8, 5, None, 8192), (3, 8, 40, 256),
+    (2, 256, 768, 1030)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_matches_plain(dev, scenes, robots, slots, D, dtype):
+    from mrp_gnn_tpu_torch.graph import batch_fully_connected
+    from mrp_gnn_tpu_torch.ops import edge
+    g = batch_fully_connected(scenes, robots, max_nodes=slots).to(dev)
+    q, k, v = _inputs(dev, g.max_nodes, 64, 64, D, seed=12)
+    v = v.to(dtype)
+    before = edge.block_attention.launches
+    got = edge.block_fused_attention(q, k, v, g)
+    assert edge.block_attention.launches == before + 1 and got.dtype == dtype
+    want = edge.block_fused_attention_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    _assert_block_close(got, want)
+    assert bool((got[~g.node_mask] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_grads_match_plain(dev, dtype):
+    """BlockAttention's backward (plain torch, as JAX's is XLA einsums)
+    against autograd through the plain version, on the card."""
+    from mrp_gnn_tpu_torch.graph import batch_fully_connected
+    from mrp_gnn_tpu_torch.ops import edge
+    g = batch_fully_connected(6, 8, max_nodes=56).to(dev)
+    q, k, v, ct = _inputs(dev, 56, 64, 64, 1024, 1024, seed=13)
+    grads = []
+    for fn in (edge.block_fused_attention, edge.block_fused_attention_reference):
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vv = v.to(dtype).requires_grad_()
+        (fn(qq, kk, vv, g).float() * ct).sum().backward()
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        assert float((got.float() - want.float()).abs().max()) <= (
+            rel * float(want.float().abs().max()))
+
+
+def test_block_attention_rejects_what_the_kernel_does_not_take(dev):
+    from mrp_gnn_tpu_torch.ops import edge
+    x = torch.ones(514, 8, device=dev)
+    valid = torch.ones(514, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        edge.block_attention(x, x, x, valid, torch.ones(257, 257, device=dev))
+    adj = torch.ones(2, 2, device=dev)
+    with pytest.raises(TypeError):
+        edge.block_attention(x, x.bfloat16(), x, valid, adj)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge.block_attention(x, x, x.t().contiguous().t(), valid, adj)
+
+
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_ell_kernels_match_plain(dev, D, dtype, graph):
+    """The plan-free ELL SpMM, SDDMM and softmax at widths up to 200, each
+    counted in its own wrapper and not in the BSP wrappers. The SpMM's
+    weights are a masked softmax, as on the attention path: f32 sums of up
+    to 200 random-normal weights would differ by more than 2e-5 in another
+    order."""
+    from mrp_gnn_tpu_torch.ops import ell
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    V = g.max_nodes
+    q, k, x = _inputs(dev, V, 64, 64, D, seed=14)
+    w = bsp.masked_softmax(_weights(g, 15), g.ell_mask)
+    before = bsp.launch_counts()
+    out = ell.spmm(w, x.to(dtype), g.ell_src, g.ell_mask)
+    lo = ell.sddmm(q, k, g.ell_src, g.ell_mask)
+    alpha = ell.softmax(lo, g.ell_mask)
+    after = bsp.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"ell_spmm": 1, "ell_sddmm": 1, "ell_softmax": 1}
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, bsp.spmm_reference(w, x.to(dtype), g.ell_src,
+                                                 g.ell_mask))
+    _assert_kernel_close(lo, bsp.sddmm_reference(q, k, g.ell_src, g.ell_mask))
+    _assert_kernel_close(alpha, bsp.masked_softmax(lo, g.ell_mask))
+    empty = ~g.ell_mask.any(dim=1)
+    assert bool((out[empty] == 0).all() and (alpha[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_attention_grads_match_plain(dev, dtype):
+    """The three ELL kernels' attention with the JAX custom vjps' gradients
+    (plain torch) against autograd through its plain version."""
+    from mrp_gnn_tpu_torch.ops import ell
+    g = _wide_graph().to(dev)
+    q, k, v, ct = _inputs(dev, 256, 64, 64, 2048, 2048, seed=16)
+    outs, grads = [], []
+    for fn in (ell.ell_attention, ell.ell_attention_reference):
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vv = v.to(dtype).requires_grad_()
+        out = fn(qq, kk, vv, g)
+        (out.float() * ct).sum().backward()
+        outs.append(out)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    _assert_kernel_close(*outs)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in zip(*grads):
+        assert float((got.float() - want.float()).abs().max()) <= (
+            rel * float(want.float().abs().max()))
