@@ -3,9 +3,9 @@ check them.
 
     python3 chip_smoke.py
 
-Six paths through the fusion layer, each at the full width of a preset
-(64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, numpy
-renderer, random seeded weights):
+Seven paths through the fusion layer, each at the full width of a preset
+(64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, random
+seeded weights; numpy renderer and graph builder unless said otherwise):
 
 - attention: ``dynamic_swarm`` itself (8 scenes x 32 drifting robots, a new
   radius graph per batch, ELL width 32 with a tile-pair plan);
@@ -16,13 +16,21 @@ renderer, random seeded weights):
   block-diagonal batch of 40 node slots), with the block attention kernel
   swapped in through the model's ``edge_fusion_fn`` as bench.py swaps it;
 - ell: ``dynamic_swarm`` with the plan-free ELL attention (the ELL SDDMM,
-  softmax and SpMM kernels) swapped in the same way, the plan ignored.
+  softmax and SpMM kernels) swapped in the same way, the plan ignored;
+- bsp2: ``dynamic_swarm`` on the native C++ renderer and graph builder
+  (``renderer`` and ``graph_builder`` "native": the JAX package's default
+  host side, which raises rather than fall back), with the two-kernel
+  attention (the weights kernel, then the SpMM) swapped in.
+
+The fused attention's backward (attention and hideg) takes dvalues and dk
+from one launch of the dual transposed SpMM.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: every CUDA kernel of the paths, compiled with nvcc for sm_90a
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), and the native renderer
+   and graph builder, compiled with g++;
 3. each kernel against its plain torch version on the card: the fused
    attention on the first ``dynamic_swarm`` eval batch (f32 and bf16
    values); the SDDMM, SpMM and transposed SpMM on the first train batch
@@ -39,6 +47,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    nodes (f32 and bf16, with the gradients of its Function); the ELL
    SDDMM, softmax and SpMM at the ell path's first train batch and on the
    crafted graphs of degree 100 and 200, with their attention's gradients;
+   the weights kernel at the bsp2 path's first train batch and on the
+   crafted graph with a tight and a padded tile-pair plan, with the
+   gradients of its Function and of the two-kernel attention; the dual
+   transposed SpMM bit for bit against two single launches at the
+   attention backward's shapes and on the hideg path's expanded view;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -48,11 +61,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the plain ops on the card;
 6. timings (medians): each kernel beside its bound, its plain version and
    a library yardstick; the block kernel against the einsum route at the
-   benchmark's shape, forward and value gradient; the Predictor's
-   device-side batch latency and whole-request latency; the train step's
-   device time with the kernels and with the plain ops, one whole step
-   through ``train()`` (host clock, data included; attention path), peak
-   memory, and profiler breakdowns of device time by kernel.
+   benchmark's shape, forward and value gradient; the dual transposed SpMM
+   against two single launches, in turns; the Predictor's device-side batch latency and whole-request
+   latency; the train step's device time with the kernels and with the
+   plain ops, one whole step through ``train()`` (host clock, data
+   included; numpy renderer on the attention path, native renderer and
+   builder on the bsp2 path's config), peak memory, and profiler
+   breakdowns of device time by kernel.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -76,6 +91,7 @@ import torch.nn.functional as F
 
 from mrp_gnn_tpu_torch import train
 from mrp_gnn_tpu_torch.config import get_config
+from mrp_gnn_tpu_torch.data import graph_native, native
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
 from mrp_gnn_tpu_torch.graph import batch_fully_connected, build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
@@ -95,12 +111,14 @@ TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
 # autograd rounds each slot's value gradient to bf16 before summing them.
 TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
-                      "spmm_t_kernel", "fused_parts_kernel", "ell_max_kernel",
-                      "ell_softmax_kernel", "block_attention_kernel")
+                      "spmm_t_kernel", "spmm_t2_kernel", "fused_parts_kernel",
+                      "weights_kernel", "ell_max_kernel", "ell_softmax_kernel",
+                      "block_attention_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
 BENCH_SCENES, BENCH_ROBOTS, BENCH_D, BENCH_DK = 1024, 8, 2048, 64
+LOOP_STEPS = 12  # steps of each train() loop timing
 
 
 def log(msg: str) -> None:
@@ -207,12 +225,29 @@ def phase_build(kernels) -> None:
         log(f"[build] {name}: nvcc output:\n{_build.build_logs.get(name, '(cached)').strip()}")
     log(f"[build] {len(kernels)} kernel(s) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for name, mod in (("renderer", native), ("graph builder", graph_native)):
+        if not mod.is_available():
+            raise RuntimeError(f"the native {name} did not build or failed "
+                               "its smoke call")
+    log(f"[build] native renderer and graph builder built (g++) and "
+        f"smoke-checked in {time.perf_counter() - t0:.2f} s")
 
 
 def swarm_config(fusion: str = "attention"):
     cfg = get_config("dynamic_swarm")
-    return cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"),
+    return cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy",
+                                                graph_builder="numpy"),
                        model=dataclasses.replace(cfg.model, fusion=fusion))
+
+
+def native_swarm_config():
+    """dynamic_swarm on the native C++ renderer and graph builder, as the
+    JAX package runs its default "auto"; "native" raises where they do not
+    build, so this path never falls back to numpy."""
+    cfg = get_config("dynamic_swarm")
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, renderer="native", graph_builder="native"))
 
 
 def hideg_config():
@@ -245,13 +280,15 @@ def attention_inputs(V: int, dk: int, D: int, seed: int, dev):
     return q, k, v
 
 
-def crafted_graph():
-    """Empty rows, duplicate edges, a wide row (deg 100) and padded nodes."""
+def crafted_graph(max_bsp_pairs: int | None = None):
+    """Empty rows, duplicate edges, a wide row (deg 100) and padded nodes;
+    ``max_bsp_pairs`` pads the tile-pair plan with inert pairs."""
     a = np.array([[1, 1, 2, 3, 0, 5, 5, 5],    # src (1->0 twice, 5->4 x3)
                   [0, 0, 0, 1, 2, 4, 4, 4]])   # dst; node 3 has no in-edge
     wide_src = np.arange(100) % 12             # node 0 of scene 1: deg 100
     b = np.stack([wide_src, np.zeros(100, np.int64)])
-    return build_graph_batch([a, b], [6, 12], max_nodes=32, max_edges=128)
+    return build_graph_batch([a, b], [6, 12], max_nodes=32, max_edges=128,
+                             max_bsp_pairs=max_bsp_pairs)
 
 
 def check_kernel_vs_plain(name, got, want, bf16: bool, scale: float = 1.0,
@@ -686,6 +723,134 @@ def phase_ell_kernels(dev) -> dict:
     return {"inputs": x, "errs": errs}
 
 
+def check_weights(x: dict, tag: str) -> tuple:
+    """The weights kernel against its plain version on the operands of
+    ``backward_inputs`` (f32; masked slots and rows without a valid slot
+    exactly 0), and the gradients of its Function (the ``_bsp_weights`` vjp)
+    against autograd through the plain version. Returns (alpha, max abs
+    err)."""
+    g = x["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    got = bsp.attention_weights(x["q_s"], x["kf"], src, mask)
+    want = bsp.attention_weights_reference(x["q_s"], x["kf"], src, mask)
+    torch.cuda.synchronize()
+    err = check_kernel_vs_plain(f"bsp_weights, {tag}", got, want, False)
+    if not (bool((got[~mask] == 0).all())
+            and bool((got[~mask.any(dim=1)] == 0).all())):
+        raise AssertionError("bsp_weights: masked slots and rows without a "
+                             "valid slot must be exactly 0")
+    ct = torch.randn(src.shape, generator=torch.Generator().manual_seed(3))
+    grads = []
+    for fn in (bsp.BspWeights.apply, bsp.attention_weights_reference):
+        q = x["q_s"].detach().clone().requires_grad_()
+        k = x["kf"].detach().clone().requires_grad_()
+        (fn(q, k, src, mask) * ct.to(src.device)).sum().backward()
+        grads.append((q.grad, k.grad))
+    torch.cuda.synchronize()
+    for gname, a, b in zip(("dq_s", "dk"), *grads):
+        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        log(f"[kernel] BspWeights {gname}, {tag}: max err {rel:.3e} of the "
+            f"largest gradient (tol {TOL_GRAD_REL[torch.float32]:.3g})")
+        if not rel <= TOL_GRAD_REL[torch.float32]:
+            raise AssertionError("BspWeights' backward disagrees with "
+                                 "autograd of the plain version")
+    return got, err
+
+
+def backward_view(x: dict, expanded: bool) -> dict:
+    """The transposed SpMMs' operands of the attention backward on
+    ``x["graph"]``: over its ELL lists, or over its row-expanded view (q_s
+    and the cotangent repeated R times, alpha and dlog split into rows)."""
+    g = x["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    q_s, ct, alpha, dlog = x["q_s"], x["ct"], x["alpha"], x["dlog"]
+    if expanded:
+        xp = g.bsp_expanded
+        src, mask = bsp.expand_ell_view(src, mask, xp.rows, xp.width)
+        alpha, dlog = (bsp._expand_rows(t, xp.rows, xp.width)
+                       for t in (alpha, dlog))
+        q_s, ct = (t.repeat_interleave(xp.rows, dim=0) for t in (q_s, ct))
+    return {"src": src, "mask": mask, "q_s": q_s, "ct": ct, "alpha": alpha,
+            "dlog": dlog, "V": g.max_nodes,
+            "view": bsp.source_view(src, mask, g.max_nodes)}
+
+
+def check_spmm_t2(x: dict, tag: str, expanded: bool = False) -> float:
+    """The dual transposed SpMM as the attention backward calls it, (alpha,
+    cotangent) -> dvalues and (dlog, q_s) -> dk, bit for bit against two
+    single launches and within tolerance of its plain version, with f32 and
+    bf16 values. Returns the f32 max abs err."""
+    b = backward_view(x, expanded)
+    src, mask, V, view = b["src"], b["mask"], b["V"], b["view"]
+    err = 0.0
+    for vdt in (torch.float32, torch.bfloat16):
+        ct = b["ct"].to(vdt)
+        dv, dk = bsp.spmm_t2(b["alpha"], ct, b["dlog"], b["q_s"], src, mask,
+                             V, vdt, torch.float32, view)
+        one = bsp.spmm_t(b["alpha"], ct, src, mask, V, vdt, view)
+        two = bsp.spmm_t(b["dlog"], b["q_s"], src, mask, V, torch.float32,
+                         view)
+        torch.cuda.synchronize()
+        name = f"{tag}, values {vdt}"
+        if not (torch.equal(dv, one) and torch.equal(dk, two)):
+            raise AssertionError(f"bsp_spmm_t2, {name}: not bit-equal to two "
+                                 "bsp_spmm_t launches")
+        want_dv, want_dk = bsp.spmm_t2_reference(
+            b["alpha"], ct, b["dlog"], b["q_s"], src, mask, V, vdt,
+            torch.float32)
+        e1 = check_kernel_vs_plain(
+            f"bsp_spmm_t2 dvalues (bit-equal to bsp_spmm_t), {name}", dv,
+            want_dv, vdt == torch.bfloat16)
+        e2 = check_kernel_vs_plain(
+            f"bsp_spmm_t2 dk (bit-equal to bsp_spmm_t), {name}", dk, want_dk,
+            False)
+        if vdt == torch.float32:
+            err = max(e1, e2)
+    return err
+
+
+def phase_bsp2_kernels(dev) -> dict:
+    """The weights kernel at the bsp2 path's first train batch (built by the
+    native graph builder) and on the crafted graph, with a tight and a
+    padded tile-pair plan; the two-kernel attention's gradients; the dual
+    transposed SpMM at the attention backward's shapes and on the hideg
+    path's expanded view."""
+    cfg = native_swarm_config()
+    m = cfg.model
+    hw = m.image_size[0] // m.bottleneck_stride
+    D, dk = hw * hw * m.encoder_channels[-1], m.attention_dim
+    g = next(iter(make_dataset(cfg.data, "train")))["graph"].to(dev)
+    log(f"[kernel] bsp2 train batch 0 (native builder): V {g.max_nodes}, deg "
+        f"{g.ell_src.shape[1]}, valid edges {int(g.ell_mask.sum())}, pairs "
+        f"{g.bsp_pair_dst.shape[0]}, dk {dk}, D {D}")
+    x = backward_inputs(g, dk, D, 41, dev)
+    errs = {}
+    _, errs["bsp_weights"] = check_weights(x, "bsp2 train")
+    # bf16 values: the plain side on f32 values, as in check_parts
+    check_function_grads(x, "bsp2 train", bsp.bsp_attention, "bsp_attention",
+                         _plain_f32_values)
+    tight = crafted_graph()
+    padded = crafted_graph(max_bsp_pairs=4 * tight.bsp_pair_dst.shape[0])
+    alphas = []
+    for name, cg in (("crafted", tight), ("crafted, padded plan", padded)):
+        xc = backward_inputs(cg.to(dev), dk, 1030, 43, dev)
+        alphas.append(check_weights(xc, name)[0])
+        check_function_grads(xc, name, bsp.bsp_attention, "bsp_attention",
+                             _plain_f32_values)
+    if not torch.equal(*alphas):
+        raise AssertionError("bsp_weights: inert pairs of a padded plan "
+                             "changed alpha")
+    log(f"[kernel] bsp_weights: the plan padded from "
+        f"{tight.bsp_pair_dst.shape[0]} to {padded.bsp_pair_dst.shape[0]} "
+        "pairs gives the same alpha, bit for bit")
+    errs["bsp_spmm_t2"] = check_spmm_t2(x, "bsp2 train")
+    xh = backward_inputs(hideg_graph(dev), dk, D, 45, dev)
+    errs["bsp_spmm_t2"] = max(errs["bsp_spmm_t2"],
+                              check_spmm_t2(xh, "hideg expanded view",
+                                            expanded=True))
+    return {"inputs": x, "hideg": xh, "errs": errs}
+
+
 def _expected(per: dict) -> dict:
     """A launch count for every kernel: ``per``'s, 0 for the others."""
     unknown = set(per) - set(bsp.KERNELS)
@@ -1113,6 +1278,99 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
     return out
 
 
+def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
+    """The weights kernel at the bsp2 path's first train batch and the dual
+    transposed SpMM at the hideg path's expanded view (f32), beside their
+    bounds, plain versions and library yardsticks; then the A/B of the dual
+    against two single launches at the hideg and the swarm shapes, in
+    turns."""
+    x = bk2["inputs"]
+    g = x["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    V, deg = src.shape
+    edges = int(mask.sum())
+    rows = torch.arange(V, device=src.device)[:, None].expand(V, deg)[mask]
+    q_s, kf = x["q_s"], x["kf"]
+    dk = q_s.shape[1]
+    alpha = bsp.attention_weights(q_s, kf, src, mask)
+    pattern = _csr(rows, src[mask].long(), torch.ones(edges, device=src.device),
+                   (V, V))
+    kT = kf.t().contiguous()
+    filled = bsp.sddmm_reference(q_s, kf, src, mask).masked_fill(~mask,
+                                                                 bsp._NEG)
+    out = [time_kernel(
+        "bsp_weights", "mrp_gnn_tpu_torch/ops/csrc/bsp_weights.cu",
+        "mrp_gnn_tpu/ops/pallas_bsp.py:118",
+        {"V": V, "deg": deg, "dk": dk, "edges": edges, "dtype": "float32"},
+        lambda: bsp.attention_weights(q_s, kf, src, mask),
+        lambda: bsp.attention_weights_reference(q_s, kf, src, mask),
+        lambda: (torch.sparse.sampled_addmm(pattern, q_s, kT, beta=0.0),
+                 torch.softmax(filled, dim=-1)),
+        "torch.sparse.sampled_addmm on the deduplicated [V, V] pattern, then "
+        "torch.softmax of the [V, deg] logits filled with -1e30 (two calls)",
+        bound_ms((q_s, kf, src, mask), (alpha,), edges * (2 * dk + 1)),
+        bk2["errs"]["bsp_weights"], tag)]
+
+    def operands(xx, expanded):
+        b = backward_view(xx, expanded)
+        srcb, maskb = b["src"], b["mask"]
+        Vx, degx = srcb.shape
+        r = torch.arange(Vx, device=srcb.device)[:, None].expand(Vx, degx)[maskb]
+        c = srcb[maskb].long()
+        b["csr"] = [_csr(c, r, w[maskb], (b["V"], Vx))
+                    for w in (b["alpha"], b["dlog"])]
+        b["edges"] = int(maskb.sum())
+        return b
+
+    def dual(b):
+        return lambda: bsp.spmm_t2(b["alpha"], b["ct"], b["dlog"], b["q_s"],
+                                   b["src"], b["mask"], b["V"], view=b["view"])
+
+    def separate(b):
+        return lambda: (
+            bsp.spmm_t(b["alpha"], b["ct"], b["src"], b["mask"], b["V"],
+                       view=b["view"]),
+            bsp.spmm_t(b["dlog"], b["q_s"], b["src"], b["mask"], b["V"],
+                       view=b["view"]))
+
+    h = operands(bk2["hideg"], True)
+    D = h["ct"].shape[1]
+    dv_out = torch.empty(h["V"], D, device=src.device)
+    dk_out = torch.empty(h["V"], dk, device=src.device)
+    out.append(time_kernel(
+        "bsp_spmm_t2", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
+        "mrp_gnn_tpu/ops/pallas_bsp.py:537",
+        {"V": h["V"], "rows": h["src"].shape[0], "width": h["src"].shape[1],
+         "D1": D, "D2": dk, "edges": h["edges"], "dtype": "float32",
+         "use": "dvalues and dk of the hideg backward"},
+        dual(h),
+        lambda: bsp.spmm_t2_reference(h["alpha"], h["ct"], h["dlog"],
+                                      h["q_s"], h["src"], h["mask"], h["V"]),
+        lambda: (torch.sparse.mm(h["csr"][0], h["ct"]),
+                 torch.sparse.mm(h["csr"][1], h["q_s"])),
+        "torch.sparse.mm(CSR of alpha transposed, cotangent) and "
+        "torch.sparse.mm(CSR of dlog transposed, q_s) (two calls)",
+        bound_ms((h["alpha"], h["ct"], h["dlog"], h["q_s"], h["src"],
+                  h["mask"]), (dv_out, dk_out), 2 * h["edges"] * (D + dk)),
+        bk2["errs"]["bsp_spmm_t2"], tag))
+
+    ab = {}
+    for label, b in (("hideg", h), ("bsp2", operands(x, False))):
+        times = {"dual": [], "separate": []}
+        for name in ("separate", "dual", "dual", "separate"):
+            fn = dual(b) if name == "dual" else separate(b)
+            times[name].append(device_ms(fn))
+        ab[label] = {"V": b["V"], "rows": b["src"].shape[0],
+                     "width": b["src"].shape[1], "D1": b["ct"].shape[1],
+                     "D2": dk, "edges": b["edges"], "device_ms": times}
+    log(json.dumps({"metric": "spmm_t2_ab", "kernels": ab,
+                    "timing": "device time per call (profiler), f32, dual = "
+                              "one bsp_spmm_t2 launch, separate = two "
+                              "bsp_spmm_t launches over the same view; turns "
+                              "separate, dual, dual, separate", **tag}))
+    return out
+
+
 def _csr(rows, cols, vals, shape):
     """A CSR matrix for the library yardsticks (duplicate entries summed)."""
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
@@ -1163,8 +1421,9 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
            lambda: bsp.spmm_reference(dlog, kf, src, mask),
            lambda: torch.sparse.mm(w_csr, kf), "torch.sparse.mm(CSR of w, x)",
            bound_ms((dlog, kf, src, mask), (kf,), 2 * edges * dk))
-    # Transposed SpMM as dvalues = SpMM_T(alpha, g), the larger of its two
-    # calls; the dk call and the view build are logged beside it.
+    # Transposed SpMM as dvalues = SpMM_T(alpha, g), as the two-kernel
+    # attention's SpMM backward (the bsp2 path) calls it at these shapes;
+    # the dk call and the view build are logged beside it.
     wt_csr = _csr(cols, rows, alpha[mask], (V, V))
     record("bsp_spmm_t", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
            "mrp_gnn_tpu/ops/pallas_bsp.py:459",
@@ -1227,9 +1486,11 @@ def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
     if loop:
         cfg = tr["cfg"].replace(train=dataclasses.replace(tr["cfg"].train,
                                                           log_every=1))
-        _, records = train.train(cfg, num_steps=4, device=x[0].device)
+        _, records = train.train(cfg, num_steps=LOOP_STEPS,
+                                 device=x[0].device)
         log(json.dumps({"metric": "train_loop", "config": cfg.name,
-                        "path": path,
+                        "path": path, "renderer": cfg.data.renderer,
+                        "graph_builder": cfg.data.graph_builder,
                         "step_time_s": [r["step_time_s"] for r in records],
                         "views_per_s": [r["views_per_s"] for r in records],
                         "edges_per_s": [r["edges_per_s"] for r in records],
@@ -1280,6 +1541,7 @@ def main() -> int:
         nk = phase_new_kernels(dev)
         bk = phase_block_kernels(dev)
         ek = phase_ell_kernels(dev)
+        bk2 = phase_bsp2_kernels(dev)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -1292,10 +1554,10 @@ def main() -> int:
     paths = {
         "attention": (swarm_config(), {"bsp_fused_attention": h},
                       {"bsp_fused_attention": h, "bsp_sddmm": h,
-                       "bsp_spmm": h, "bsp_spmm_t": 2 * h}, None),
+                       "bsp_spmm": h, "bsp_spmm_t2": h}, None),
         "hideg": (hideg_config(), {"bsp_fused_parts": h},
                   {"bsp_fused_parts": h, "bsp_sddmm": h, "bsp_spmm": h,
-                   "bsp_spmm_t": 2 * h}, None),
+                   "bsp_spmm_t2": h}, None),
         "mean": (swarm_config("mean"), {"bsp_spmm": L},
                  {"bsp_spmm": L, "bsp_spmm_t": L}, None),
         "max": (swarm_config("max"), {"ell_max": L}, {"ell_max": L}, None),
@@ -1303,6 +1565,9 @@ def main() -> int:
                   {"block_attention": hb}, kernel_swap(edge.with_block_kernel)),
         "ell": (swarm_config(), ell_per, ell_per,
                 kernel_swap(ell.with_ell_kernels)),
+        "bsp2": (native_swarm_config(), {"bsp_weights": h, "bsp_spmm": h},
+                 {"bsp_weights": h, "bsp_spmm": 2 * h, "bsp_sddmm": h,
+                  "bsp_spmm_t": 2 * h}, kernel_swap(bsp.with_bsp_attention)),
     }
     serve, tr = {}, {}
     with phase("serving"):
@@ -1317,16 +1582,21 @@ def main() -> int:
         kernels += phase_new_kernel_timings(nk, tag)
         kernels += phase_block_timings(bk, tag)
         kernels += phase_ell_timings(ek, tag)
+        kernels += phase_bsp2_timings(bk2, tag)
         phase_train_timings(tr["attention"], tag)
-        for path in ("hideg", "mean", "max", "block", "ell"):
+        for path in ("hideg", "mean", "max", "block", "ell", "bsp2"):
             predictor_timings(serve[path], tag, path)
-            phase_train_timings(tr[path], tag, loop=False, inner=10)
+            phase_train_timings(tr[path], tag, loop=path == "bsp2", inner=10)
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",
-                "ell_softmax": "ell", "ell_spmm": "ell"}
+                "ell_softmax": "ell", "ell_spmm": "ell",
+                "bsp_weights": "bsp2", "bsp_spmm_t": "bsp2",
+                "bsp_spmm_t2": "hideg"}
     for k in kernels:
         k["launches"] = tr[own_path.get(k["name"], "attention")]["launches"][k["name"]]
+    if sorted(k["name"] for k in kernels) != sorted(bsp.KERNELS):
+        raise AssertionError("the kernels line must list every wrapper once")
     log(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))

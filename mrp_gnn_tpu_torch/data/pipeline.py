@@ -11,10 +11,13 @@ from the scenes' robot positions under pinned capacities.
 ``make_train_iterator`` gives the endless shuffled training stream, filled
 ahead by a thread (``PrefetchIterator``) when ``cfg.prefetch > 0``.
 
+Scenes are rendered by the native C++ renderer (``data/native.py``) where
+it builds, as in the JAX package, or by the numpy one (``renderer``).
+
 Not ported yet: resuming the stream at a batch (``start_batch``, with
 checkpoints: ROADMAP.md, queue A item 8); augmentation, per-host
-``node_range`` sharding, the grain loader, the on-disk dataset and the
-native renderer (``renderer="auto"`` resolves to numpy; queue A item 9).
+``node_range`` sharding, the grain loader and the on-disk dataset (queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import threading
 import numpy as np
 
 from mrp_gnn_tpu_torch.config import DataConfig
+from mrp_gnn_tpu_torch.data import native
 from mrp_gnn_tpu_torch.data.synthetic import (SceneSpec, generate_scene,
                                               scene_positions)
 from mrp_gnn_tpu_torch.graph import (batch_from_positions,
@@ -36,11 +40,7 @@ class SceneDataset:
     """Deterministic map-style dataset of synthetic scenes."""
 
     def __init__(self, cfg: DataConfig, split: str = "train"):
-        if cfg.renderer == "native":
-            raise NotImplementedError(
-                "the native renderer is not ported yet (ROADMAP.md, queue A "
-                "item 9: data/native.py); use renderer='numpy' or 'auto'")
-        if cfg.renderer not in ("auto", "numpy"):
+        if cfg.renderer not in ("auto", "native", "numpy"):
             raise ValueError(f"unknown renderer {cfg.renderer!r}")
         self.cfg = cfg
         self.split = split
@@ -57,12 +57,23 @@ class SceneDataset:
             # cfg.mobility is in robot-index units; slots sit 0.25 m apart
             mobility=cfg.mobility * 0.25,
         )
+        # "auto": the native renderer wherever it builds, as in the JAX
+        # package; "native" raises when it does not.
+        self._use_native = False
+        if cfg.renderer in ("auto", "native"):
+            self._use_native = native.is_available()
+            if cfg.renderer == "native" and not self._use_native:
+                raise RuntimeError("native renderer requested but the shared "
+                                   "library could not be built/loaded")
 
     def __len__(self) -> int:
         return self.num_scenes
 
     def __getitem__(self, idx: int) -> dict:
-        rec = generate_scene(self.spec, self._seed, idx)
+        if self._use_native:
+            rec = native.render_scene_native(self.spec, self._seed, idx)
+        else:
+            rec = generate_scene(self.spec, self._seed, idx)
         if self.cfg.degraded_fraction > 0:
             rec = degrade_robots(rec, self.cfg.degraded_fraction,
                                  self._seed, idx)

@@ -11,15 +11,14 @@ A batch of scene graphs is flattened into one padded graph:
   lists) and, where the node count allows, a tile-pair plan (``bsp_*``),
   or, for ELL widths past 128, a row-expanded plan (``bsp_expanded``).
 
-The builders are numpy and give arrays bit-identical to the JAX package's
-numpy builders (``tests/test_torch_graph.py``). The tile-pair plans, square
-and row-expanded, are kept field for field although the CUDA kernels gather
-straight from ``ell_src``: they mark a batch as one the kernels serve,
-exactly as in the JAX package.
-
-Not ported here: the native C++ builder (``backend="native"`` raises;
-``"auto"`` resolves to numpy, which the JAX package's tests hold
-bit-identical to it).
+The builders here are numpy and give arrays bit-identical to the JAX
+package's numpy builders (``tests/test_torch_graph.py``);
+:func:`batch_from_positions` runs the native C++ builder
+(``data/graph_native.py``) by default, as the JAX package does, which gives
+the same bits. The tile-pair plans, square and row-expanded, are kept
+field for field although the CUDA kernels gather straight from
+``ell_src``: they mark a batch as one the kernels serve, exactly as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -242,15 +241,26 @@ def batch_from_positions(
     """Per-batch GraphBatch from per-scene robot positions (dynamic swarms),
     under pinned capacities so every batch has the same shapes.
 
-    backend: "auto" and "numpy" run the numpy builder; "native" raises
-    (the C++ builder is not ported yet).
+    backend: "auto" runs the native C++ builder (``data/graph_native.py``)
+    where it builds and takes the shapes, else the numpy builder; "native"
+    raises rather than fall back; "numpy" forces the numpy builder. Both
+    give bit-identical batches.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "the native graph builder is not ported yet (ROADMAP.md, queue "
-            "A item 9: data/graph_native.py); use backend='numpy'")
-    if backend not in ("auto", "numpy"):
+    if backend not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown graph builder backend {backend!r}")
+    if backend != "numpy":
+        from mrp_gnn_tpu_torch.data import graph_native
+        gb = graph_native.batch_from_positions_native(
+            scene_positions, radius, max_nodes, max_edges, max_degree,
+            max_bsp_pairs, max_expanded_pairs=max_expanded_pairs)
+        if gb is not None:
+            if (gb.bsp_tile > 0 and gb.ell_src.shape[1] > 128
+                    and gb.bsp_expanded is None):
+                _warn_hideg_fallback(int(gb.ell_src.shape[1]))
+            return gb
+        if backend == "native":
+            raise RuntimeError("native graph builder requested but the "
+                               "shared library could not be built/loaded")
     edges = [positions_radius_edges(p, radius) for p in scene_positions]
     return build_graph_batch(edges, [len(p) for p in scene_positions],
                              max_nodes=max_nodes, max_edges=max_edges,

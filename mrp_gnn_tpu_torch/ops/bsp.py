@@ -13,9 +13,15 @@ replacing the TPU's ``_fused_kernel``), with a backward
   sums;
 - ``spmm_t`` (``csrc/bsp_spmm_t.cu``; ``_spmm_t_kernel``): the transposed
   sums, driven by a source-major view of the valid slots
-  (:func:`source_view`) so that they need no float atomics.
+  (:func:`source_view`) so that they need no float atomics; the
+  backward runs its dual form, ``spmm_t2`` (``_spmm_t2_kernel``), which
+  gives dvalues and dk from one launch.
 
-``bsp_mean`` is the SpMM with the JAX ``_bsp_spmm`` gradient
+``bsp_attention`` is the JAX package's two-kernel form: ``attention_weights``
+(``csrc/bsp_weights.cu``; ``_weights_kernel``) emits alpha, with the
+``_bsp_weights`` gradient (:class:`BspWeights`), and the SpMM aggregates;
+:func:`with_bsp_attention` puts it on a model path. ``bsp_mean`` is the
+SpMM with the JAX ``_bsp_spmm`` gradient
 (:class:`WeightedAggregate`). ELL widths past 128 run over the row-expanded
 view of the neighbour lists (``graph.BspExpandedPlan``, at most 128 slots
 per expanded row): ``expanded_attention_fused`` through
@@ -37,6 +43,7 @@ SpMM and SDDMM kernels take any ELL width; the plan-free ELL path of
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import importlib
 import math
 
@@ -51,15 +58,19 @@ MAX_DK = 256      # the fused kernels keep a row's query in shared memory
 _KERNEL = "bsp_fused_attention"
 # The CUDA sources of the port (csrc/<name>.cu).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
-           "bsp_fused_parts", "ell_max", "ell_softmax", "block_attention")
+           "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
+           "block_attention")
 # Launch counts by wrapper: name -> (module of mrp_gnn_tpu_torch.ops,
 # wrapper). ell_spmm and ell_sddmm launch bsp_spmm.cu and bsp_sddmm.cu, and
-# count apart from bsp_spmm and bsp_sddmm.
+# count apart from bsp_spmm and bsp_sddmm; bsp_spmm_t2 is the dual form of
+# bsp_spmm_t.cu, counted apart from bsp_spmm_t.
 _WRAPPERS = {
     "bsp_fused_attention": ("bsp", "fused_attention"),
+    "bsp_weights": ("bsp", "attention_weights"),
     "bsp_sddmm": ("bsp", "sddmm"),
     "bsp_spmm": ("bsp", "spmm"),
     "bsp_spmm_t": ("bsp", "spmm_t"),
+    "bsp_spmm_t2": ("bsp", "spmm_t2"),
     "bsp_fused_parts": ("bsp", "fused_attention_parts"),
     "ell_max": ("ell", "masked_max"),
     "ell_sddmm": ("ell", "sddmm"),
@@ -128,6 +139,16 @@ def fused_attention_reference(q_s: torch.Tensor, k: torch.Tensor,
     alpha = masked_softmax(logits, ell_mask)
     out = torch.einsum("vj,vjd->vd", alpha, values[src].float())
     return out.to(values.dtype)
+
+
+def attention_weights_reference(q_s: torch.Tensor, k: torch.Tensor,
+                                ell_src: torch.Tensor,
+                                ell_mask: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the weights kernel: alpha f32 [V, deg], the
+    masked softmax over each row's slots of <q_s[v], k[ell_src[v, j]]>.
+    q_s f32 [V, dk], already scaled by 1/sqrt(dk); k f32 [Vs, dk]."""
+    logits = torch.einsum("vd,vjd->vj", q_s, k[ell_src.long()])
+    return masked_softmax(logits, ell_mask)
 
 
 def sddmm_reference(a: torch.Tensor, b: torch.Tensor, ell_src: torch.Tensor,
@@ -327,6 +348,40 @@ def fused_attention_parts(q_x: torch.Tensor, k: torch.Tensor,
 fused_attention_parts.launches = 0
 
 
+def attention_weights(q_s: torch.Tensor, k: torch.Tensor,
+                      ell_src: torch.Tensor,
+                      ell_mask: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper, same contract as :func:`attention_weights_reference`
+    (``csrc/bsp_weights.cu``, the TPU's ``_weights_kernel``), for ELL
+    widths up to MAX_DEGREE and dk up to MAX_DK. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if k.device.type == "cpu":
+        return attention_weights_reference(q_s, k, ell_src, ell_mask)
+    _check_cuda("bsp_weights", ell_src, ell_mask, q_s=q_s, k=k)
+    if q_s.dtype != torch.float32 or k.dtype != torch.float32:
+        raise TypeError("q_s and k must be float32")
+    V, deg = ell_src.shape
+    if (q_s.dim() != 2 or k.dim() != 2 or q_s.shape[1] != k.shape[1]
+            or q_s.shape[0] != V):
+        raise ValueError(f"shape mismatch: q_s {tuple(q_s.shape)}, k "
+                         f"{tuple(k.shape)}, ell_src {tuple(ell_src.shape)}")
+    if not 0 < q_s.shape[1] <= MAX_DK:
+        raise ValueError(f"kernel takes 0 < dk <= {MAX_DK}, got {q_s.shape[1]}")
+    alpha = torch.empty(V, deg, dtype=torch.float32, device=k.device)
+    if alpha.numel() == 0:
+        return alpha
+    _build.run("bsp_weights", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p],
+               q_s.data_ptr(), k.data_ptr(), ell_src.data_ptr(),
+               ell_mask.data_ptr(), alpha.data_ptr(), V, deg, q_s.shape[1],
+               k.device.index, _build.stream(k))
+    attention_weights.launches += 1
+    return alpha
+
+
+attention_weights.launches = 0
+
+
 def _pair_flags(a: torch.Tensor, b: torch.Tensor) -> int:
     """bsp_sddmm's operand flags: a bf16, b bf16, 16-byte loads."""
     return (int(a.dtype == torch.bfloat16) | int(b.dtype == torch.bfloat16) << 1
@@ -432,43 +487,109 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
            view: tuple | None = None) -> torch.Tensor:
     """Kernel wrapper, same contract as :func:`spmm_t_reference`.
 
-    ``view``: the batch's :func:`source_view`, built here when not given
-    (the backward builds it once for its two calls).
+    ``view``: the batch's :func:`source_view`, built here when not given.
+    Counted in
+    ``spmm_t.launches``.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return spmm_t_reference(w, x, ell_src, ell_mask, num_rows, out_dtype)
-    _check_cuda("bsp_spmm_t", ell_src, ell_mask, w=w, x=x)
-    if (w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES
-            or out_dtype not in _VALUE_TYPES):
-        raise TypeError(f"w must be float32, x and out float32 or bfloat16, "
-                        f"got {w.dtype}, {x.dtype} and {out_dtype}")
-    V, deg = ell_src.shape
-    if w.shape != ell_src.shape or x.dim() != 2 or x.shape[0] != V:
-        raise ValueError(f"w {tuple(w.shape)} must match ell_src "
-                         f"{tuple(ell_src.shape)} and x be [V, D]")
-    if V * deg >= 2 ** 31:
-        raise ValueError("the slot index v * deg + j must fit in int32")
-    out = torch.empty(num_rows, x.shape[1], dtype=out_dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    if V * deg == 0:
-        return out.zero_()
-    offsets, slots = view if view is not None else source_view(
-        ell_src, ell_mask, num_rows)
-    if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
-        raise ValueError("view does not fit this batch and num_rows")
-    _build.run("bsp_spmm_t", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-               + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-               w.data_ptr(), x.data_ptr(), offsets.data_ptr(),
-               slots.data_ptr(), out.data_ptr(), num_rows, deg, x.shape[1],
-               int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-               8 if _vec8(x, out) else 1, x.device.index, _build.stream(x))
-    spmm_t.launches += 1
+    (out,) = _run_spmm_t(spmm_t, ((w, x, out_dtype),), ell_src, ell_mask,
+                         num_rows, view)
     return out
 
 
 spmm_t.launches = 0
+
+
+def spmm_t2_reference(w1: torch.Tensor, x1: torch.Tensor, w2: torch.Tensor,
+                      x2: torch.Tensor, ell_src: torch.Tensor,
+                      ell_mask: torch.Tensor, num_rows: int,
+                      out1_dtype: torch.dtype | None = None,
+                      out2_dtype: torch.dtype | None = None) -> tuple:
+    """(spmm_t_reference of (w1, x1), spmm_t_reference of (w2, x2)): the
+    plain version of the dual transposed SpMM."""
+    return (spmm_t_reference(w1, x1, ell_src, ell_mask, num_rows, out1_dtype),
+            spmm_t_reference(w2, x2, ell_src, ell_mask, num_rows, out2_dtype))
+
+
+def spmm_t2(w1: torch.Tensor, x1: torch.Tensor, w2: torch.Tensor,
+            x2: torch.Tensor, ell_src: torch.Tensor, ell_mask: torch.Tensor,
+            num_rows: int, out1_dtype: torch.dtype | None = None,
+            out2_dtype: torch.dtype | None = None,
+            view: tuple | None = None) -> tuple:
+    """Kernel wrapper, same contract as :func:`spmm_t2_reference`: both
+    transposed SpMMs from one launch of the dual form of
+    ``csrc/bsp_spmm_t.cu`` (the TPU's ``_spmm_t2_kernel``), over one
+    :func:`source_view`. x1 and x2 may differ in width and dtype. On CUDA
+    each output has the bits of a single :func:`spmm_t` launch; counted in
+    ``spmm_t2.launches``, apart from :func:`spmm_t`."""
+    out1_dtype = out1_dtype or x1.dtype
+    out2_dtype = out2_dtype or x2.dtype
+    if x1.device.type == "cpu":
+        return spmm_t2_reference(w1, x1, w2, x2, ell_src, ell_mask, num_rows,
+                                 out1_dtype, out2_dtype)
+    return _run_spmm_t(spmm_t2, ((w1, x1, out1_dtype), (w2, x2, out2_dtype)),
+                       ell_src, ell_mask, num_rows, view)
+
+
+spmm_t2.launches = 0
+
+
+def _spmm_t_flags(x: torch.Tensor, out: torch.Tensor) -> int:
+    """bsp_spmm_t's flags of one operand pair: x bf16, out bf16, 16-byte
+    loads."""
+    return (int(x.dtype == torch.bfloat16) | int(out.dtype == torch.bfloat16) << 1
+            | int(_vec8(x, out)) << 2)
+
+
+def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
+                view) -> list:
+    """Check CUDA inputs and launch ``bsp_spmm_t.cu`` for one (w, x,
+    out_dtype) pair or two, counting the launch in ``counter.launches``."""
+    tensors = {}
+    for i, (w, x, _) in enumerate(pairs, 1):
+        tensors.update({f"w{i}": w, f"x{i}": x})
+    _check_cuda("bsp_spmm_t", ell_src, ell_mask, **tensors)
+    V, deg = ell_src.shape
+    for w, x, out_dtype in pairs:
+        if (w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES
+                or out_dtype not in _VALUE_TYPES):
+            raise TypeError(f"w must be float32, x and out float32 or "
+                            f"bfloat16, got {w.dtype}, {x.dtype} and "
+                            f"{out_dtype}")
+        if w.shape != ell_src.shape or x.dim() != 2 or x.shape[0] != V:
+            raise ValueError(f"w {tuple(w.shape)} must match ell_src "
+                             f"{tuple(ell_src.shape)} and x be [V, D]")
+    if V * deg >= 2 ** 31:
+        raise ValueError("the slot index v * deg + j must fit in int32")
+    outs = [torch.empty(num_rows, x.shape[1], dtype=dt, device=x.device)
+            for _, x, dt in pairs]
+    if any(o.numel() == 0 for o in outs):
+        if num_rows and len(pairs) > 1:
+            raise ValueError("the dual form takes operands of nonzero width")
+        return outs
+    if V * deg == 0:
+        return [o.zero_() for o in outs]
+    offsets, slots = view if view is not None else source_view(
+        ell_src, ell_mask, num_rows)
+    if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
+        raise ValueError("view does not fit this batch and num_rows")
+    args = []
+    for (w, x, _), out in zip(pairs, outs):
+        args += [w.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[1],
+                 _spmm_t_flags(x, out)]
+    if len(pairs) == 1:
+        args += [None, None, None, 0, 0]
+    x = pairs[0][1]
+    _build.run("bsp_spmm_t",
+               ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]) * 2
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p],
+               *args, offsets.data_ptr(), slots.data_ptr(), num_rows, deg,
+               x.device.index, _build.stream(x))
+    counter.launches += 1
+    return outs
 
 
 def _wrapper(name: str):
@@ -493,6 +614,14 @@ def launch_counts() -> dict:
 # --- autograd ------------------------------------------------------------------
 
 
+def _softmax_bwd(alpha: torch.Tensor, g: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """dlogits of a masked row softmax: alpha * (g - sum_j alpha_j g_j),
+    0 on masked slots (plain torch; the JAX package's is XLA)."""
+    dlog = alpha * (g - (alpha * g).sum(-1, keepdim=True))
+    return torch.where(mask, dlog, 0.0)
+
+
 def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g,
                              rows: int = 1) -> tuple:
     """(dq_s, dk, dvalues) of the fused attention for the output cotangent
@@ -503,6 +632,9 @@ def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g,
     (``:1333-1376``) over the row-expanded view ``ell_src``/``ell_mask``
     [V * R, W]: q_s and g repeated R times, the softmax on the logits
     folded to [V, R * W], and dq summed over each node's R rows.
+    dvalues and dk come from one :func:`spmm_t2` launch after dlog, where
+    the JAX backwards run two ``_spmm_t_kernel`` sweeps; on the card it
+    gives the bits of two :func:`spmm_t` launches.
     """
     V = q_s.shape[0]
     g = g.contiguous()  # may arrive as a permuted view (models/fusion.py)
@@ -515,15 +647,14 @@ def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g,
     alpha = masked_softmax(logits.reshape(V, -1), mask)
     view = (source_view(ell_src, ell_mask, values.shape[0])
             if values.is_cuda else None)
-    dvalues = spmm_t(alpha.reshape(ell_src.shape), g_x, ell_src, ell_mask,
-                     values.shape[0], values.dtype, view)
-    dalpha = dalpha.reshape(V, -1)
-    dlog = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
-    dlog = torch.where(mask, dlog, 0.0).reshape(ell_src.shape)
+    alpha = alpha.reshape(ell_src.shape)
+    dlog = _softmax_bwd(alpha.reshape(V, -1), dalpha.reshape(V, -1),
+                        mask).reshape(ell_src.shape)
     dq = spmm(dlog, k, ell_src, ell_mask)
     if rows > 1:
         dq = dq.reshape(V, rows, -1).float().sum(dim=1)
-    dk = spmm_t(dlog, q_x, ell_src, ell_mask, k.shape[0], k.dtype, view)
+    dvalues, dk = spmm_t2(alpha, g_x, dlog, q_x, ell_src, ell_mask,
+                          values.shape[0], values.dtype, k.dtype, view)
     return dq.to(q_s.dtype), dk, dvalues
 
 
@@ -539,7 +670,31 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*fused_attention_backward(*ctx.saved_tensors, g), None, None)
+        grads = fused_attention_backward(*ctx.saved_tensors, g)
+        return (*grads, None, None)
+
+
+class BspWeights(torch.autograd.Function):
+    """:func:`attention_weights` with the JAX package's ``_bsp_weights``
+    custom vjp (``pallas_bsp.py:211-228``): dlog = alpha * (g - sum alpha
+    g), masked, in plain torch; dq = spmm(dlog, k); dk = spmm_t(dlog, q_s).
+    The forward saves alpha."""
+
+    @staticmethod
+    def forward(ctx, q_s, k, ell_src, ell_mask):
+        alpha = attention_weights(q_s, k, ell_src, ell_mask)
+        ctx.save_for_backward(q_s, k, ell_src, ell_mask, alpha)
+        return alpha
+
+    @staticmethod
+    def backward(ctx, g):
+        q_s, k, ell_src, ell_mask, alpha = ctx.saved_tensors
+        dlog = _softmax_bwd(alpha, g.float(), ell_mask).contiguous()
+        dq = spmm(dlog, k, ell_src, ell_mask)
+        # The transposed SpMM builds its own source view here, as
+        # WeightedAggregate's backward does for the same batch before it.
+        dk = spmm_t(dlog, q_s, ell_src, ell_mask, k.shape[0], k.dtype)
+        return dq.to(q_s.dtype), dk, None, None
 
 
 def xp_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, V: int,
@@ -635,6 +790,33 @@ def bsp_attention_fused(q: torch.Tensor, k: torch.Tensor,
     """
     q_s, kf = _scaled(q, k)
     return FusedAttention.apply(q_s, kf, values, graph.ell_src, graph.ell_mask)
+
+
+def bsp_attention(q: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
+                  graph) -> torch.Tensor:
+    """Edge attention in the two-kernel form of the JAX package's
+    ``bsp_attention``: the weights kernel emits alpha [V, deg]
+    (:class:`BspWeights`), then the SpMM aggregates the values
+    (:class:`WeightedAggregate`, the ``_bsp_spmm`` vjp). Same semantics as
+    :func:`bsp_attention_fused`, for ELL widths up to MAX_DEGREE."""
+    q_s, kf = _scaled(q, k)
+    alpha = BspWeights.apply(q_s, kf, graph.ell_src, graph.ell_mask)
+    return bsp_weighted_aggregate(alpha, values, graph)
+
+
+def with_bsp_attention(ops):
+    """A copy of the ``EdgeOps`` ``ops`` whose ELL attention takes the
+    two-kernel form :func:`bsp_attention` on batches with a tile-pair plan
+    (:func:`supports`) and ``ops``' own ELL attention otherwise. Dispatch
+    keeps the fused kernel, as the JAX package does."""
+    inner = ops.ell_attention
+
+    def ell_attention(q, k, values, graph):
+        if supports(graph):
+            return bsp_attention(q, k, values, graph)
+        return inner(q, k, values, graph)
+
+    return dataclasses.replace(ops, ell_attention=ell_attention)
 
 
 def bsp_attention_fused_reference(q: torch.Tensor, k: torch.Tensor,

@@ -1,8 +1,9 @@
 // Shared device code of the port's kernels (bsp_fused_attention.cu,
-// bsp_fused_parts.cu, bsp_sddmm.cu, bsp_spmm.cu, bsp_spmm_t.cu, ell_max.cu,
-// ell_softmax.cu, block_attention.cu): 16-byte vector loads and stores with
-// f32 arithmetic, warp reductions, the compaction of a row's valid slots,
-// and the body of the fused attention.
+// bsp_fused_parts.cu, bsp_weights.cu, bsp_sddmm.cu, bsp_spmm.cu,
+// bsp_spmm_t.cu, ell_max.cu, ell_softmax.cu, block_attention.cu): 16-byte
+// vector loads and stores with f32 arithmetic, warp reductions, the
+// compaction of a row's valid slots, a row's softmax weights and the body
+// of the fused attention.
 
 #pragma once
 
@@ -124,13 +125,73 @@ __device__ __forceinline__ int compact_valid_slots(
   return base;
 }
 
+// The shared memory of one ELL row's attention weights (row_exp_weights).
+struct RowWeights {
+  float q[kMaxDk];
+  int32_t src[kMaxDeg];   // the valid slots' source nodes, in slot order
+  int32_t slot[kMaxDeg];  // and their slot indices j
+  float w[kMaxDeg];       // logits, then e_j
+  int n;                  // number of valid slots
+  float m, l;             // max logit (kNeg without a valid slot), sum of e_j
+};
+
+// Run by all kMaxThreads threads of a block for ELL row `row` (deg <=
+// kMaxDeg, dk <= kMaxDk); q (already scaled by 1/sqrt(dk)) and k are f32
+// [., dk]. Over the row's valid slots j, in slot order: x_j = <q[row],
+// k[src_j]> (one warp per slot), m = max(kNeg, max_j x_j), e_j = exp(x_j -
+// max(m, kNeg / 2)) (the reference's floored max), l = sum_j e_j. Leaves
+// e_j in sh.w, and n, m, l in sh, visible to every thread on return. The
+// logits never leave shared memory.
+__device__ __forceinline__ void row_exp_weights(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const int32_t* __restrict__ ell_src, const uint8_t* __restrict__ ell_mask,
+    long long row, int deg, int dk, RowWeights& sh) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < dk; i += kMaxThreads) sh.q[i] = q[row * dk + i];
+  if (warp == 0) {
+    const int n = compact_valid_slots(ell_src, ell_mask, row, deg, sh.src,
+                                      sh.slot);
+    if (lane == 0) sh.n = n;
+  }
+  __syncthreads();
+  const int n = sh.n;
+
+  // Logits, one warp per valid slot.
+  for (int s = warp; s < n; s += kMaxWarps) {
+    const float* kr = k + static_cast<long long>(sh.src[s]) * dk;
+    float acc = 0.f;
+    for (int d = lane; d < dk; d += 32) acc = fmaf(sh.q[d], kr[d], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) sh.w[s] = acc;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    float m = kNeg;
+    for (int s = lane; s < n; s += 32) m = fmaxf(m, sh.w[s]);
+    m = warp_max(m);
+    const float mg = fmaxf(m, kNeg / 2);
+    float l = 0.f;
+    for (int s = lane; s < n; s += 32) {
+      const float e = expf(sh.w[s] - mg);
+      sh.w[s] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      sh.m = m;
+      sh.l = l;
+    }
+  }
+  __syncthreads();
+}
+
 // One block of the fused attention: ELL row blockIdx.x, features
-// [blockIdx.y * kMaxThreads * VEC, ...), kMaxThreads threads. q (already
-// scaled by 1/sqrt(dk)) and k are f32 [., dk]; values T [Vs, D].
-//
-// x_j = <q[row], k[src_j]> over the row's valid slots j, m = max(kNeg,
-// max_j x_j) (kNeg for a row with no valid slot), e_j = exp(x_j - max(m,
-// kNeg / 2)), l = sum_j e_j.
+// [blockIdx.y * kMaxThreads * VEC, ...), kMaxThreads threads; values T
+// [Vs, D]. With x_j, m, e_j and l of row_exp_weights:
 //   kParts false: out[row] = sum_j (e_j / l) * values[src_j] in T (0 when
 //     l == 0): the fused attention (TO = T).
 //   kParts true: out[row] = sum_j e_j * values[src_j] in f32, not divided,
@@ -145,60 +206,25 @@ __device__ __forceinline__ void fused_attention_row(
     const uint8_t* __restrict__ ell_mask, TO* __restrict__ out,
     float* __restrict__ m_out, float* __restrict__ l_out, int deg, int dk,
     long long D) {
-  __shared__ float q_sh[kMaxDk];
-  __shared__ int32_t src_sh[kMaxDeg];
-  __shared__ float w_sh[kMaxDeg];  // logits, then weights
-  __shared__ int n_sh;
-
+  __shared__ RowWeights sh;
   const long long row = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  row_exp_weights(q, k, ell_src, ell_mask, row, deg, dk, sh);
+  const int n = sh.n;
+  float* w_sh = sh.w;
+  const int32_t* src_sh = sh.src;
 
-  for (int i = tid; i < dk; i += kMaxThreads) q_sh[i] = q[row * dk + i];
-  if (warp == 0) {
-    const int n = compact_valid_slots(ell_src, ell_mask, row, deg, src_sh,
-                                      nullptr);
-    if (lane == 0) n_sh = n;
-  }
-  __syncthreads();
-  const int n = n_sh;
-
-  // Logits, one warp per valid slot.
-  for (int s = warp; s < n; s += kMaxWarps) {
-    const float* kr = k + static_cast<long long>(src_sh[s]) * dk;
-    float acc = 0.f;
-    for (int d = lane; d < dk; d += 32) acc = fmaf(q_sh[d], kr[d], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) w_sh[s] = acc;
-  }
-  __syncthreads();
-
-  // Masked softmax weights over the valid slots, with the reference's
-  // guards: the max is floored at kNeg / 2, a zero sum gives weight 0.
-  if (warp == 0) {
-    float m = kNeg;
-    for (int s = lane; s < n; s += 32) m = fmaxf(m, w_sh[s]);
-    m = warp_max(m);
-    const float mg = fmaxf(m, kNeg / 2);
-    float l = 0.f;
-    for (int s = lane; s < n; s += 32) {
-      const float e = expf(w_sh[s] - mg);
-      w_sh[s] = e;
-      l += e;
+  if (kParts) {
+    if (tid == 0 && blockIdx.y == 0) {
+      m_out[row] = sh.m;
+      l_out[row] = sh.l;
     }
-    l = warp_sum(l);
-    if (kParts) {
-      if (lane == 0 && blockIdx.y == 0) {
-        m_out[row] = m;
-        l_out[row] = l;
-      }
-    } else {
-      const float inv = l > 0.f ? 1.f / l : 0.f;
-      for (int s = lane; s < n; s += 32) w_sh[s] *= inv;
-    }
+  } else {
+    // Normalise the weights; a zero sum gives weight 0.
+    const float inv = sh.l > 0.f ? 1.f / sh.l : 0.f;
+    for (int s = tid; s < n; s += kMaxThreads) w_sh[s] *= inv;
+    __syncthreads();
   }
-  __syncthreads();
 
   const long long f0 =
       (static_cast<long long>(blockIdx.y) * kMaxThreads + tid) * VEC;

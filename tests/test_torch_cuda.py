@@ -413,3 +413,145 @@ def test_ell_attention_grads_match_plain(dev, dtype):
     for got, want in zip(*grads):
         assert float((got.float() - want.float()).abs().max()) <= (
             rel * float(want.float().abs().max()))
+
+
+def _padded_plan_graph():
+    """_graph() with its tile-pair plan padded to twice its pairs (inert)."""
+    a = np.array([[1, 1, 2, 3, 0, 5, 5, 5], [0, 0, 0, 1, 2, 4, 4, 4]])
+    b = radius_edges(40, 30)
+    tight = _graph()
+    return build_graph_batch([a, b], [6, 40], max_nodes=64, max_edges=2048,
+                             max_bsp_pairs=2 * tight.bsp_pair_dst.shape[0])
+
+
+@pytest.mark.parametrize("graph", ["square", "padded_plan"])
+@pytest.mark.parametrize("dk", [64, 200])
+def test_attention_weights_match_plain(dev, graph, dk):
+    """The weights kernel (SDDMM and masked softmax) against its plain
+    version: f32 within 2e-5; masked slots and rows without a valid slot
+    exactly 0; duplicate edges count once per slot."""
+    g = (_graph() if graph == "square" else _padded_plan_graph()).to(dev)
+    q, k = _inputs(dev, 64, dk, dk, seed=17)
+    q_s = q / dk ** 0.5
+    before = bsp.attention_weights.launches
+    got = bsp.attention_weights(q_s, k, g.ell_src, g.ell_mask)
+    assert bsp.attention_weights.launches == before + 1
+    want = bsp.attention_weights_reference(q_s, k, g.ell_src, g.ell_mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    assert bool((got[~g.ell_mask] == 0).all())
+    assert bool((got[~g.ell_mask.any(dim=1)] == 0).all())
+    rows = g.ell_mask.any(dim=1)
+    torch.testing.assert_close(got[rows].sum(-1),
+                               torch.ones(int(rows.sum()), device=dev),
+                               rtol=0, atol=1e-5)
+
+
+def test_attention_weights_reject_what_the_kernel_does_not_take(dev):
+    g = _wide_graph().to(dev)
+    x = torch.ones(256, 64, device=dev)
+    with pytest.raises(ValueError, match="deg"):
+        bsp.attention_weights(x, x, g.ell_src, g.ell_mask)
+    g = _graph().to(dev)
+    x = torch.ones(64, 300, device=dev)
+    with pytest.raises(ValueError, match="dk"):
+        bsp.attention_weights(x, x, g.ell_src, g.ell_mask)
+    with pytest.raises(TypeError):
+        bsp.attention_weights(x.bfloat16(), x, g.ell_src, g.ell_mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsp_attention_grads_match_plain(dev, dtype):
+    """The two-kernel attention (BspWeights, then WeightedAggregate) with
+    its kernel backward against torch autograd through the plain fused
+    version, on the card."""
+    g = _graph().to(dev)
+    q, k, v, ct = _inputs(dev, 64, 64, 64, 4096, 4096, seed=18)
+    outs, grads = [], []
+    for fn in (bsp.bsp_attention, bsp.bsp_attention_fused_reference):
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vv = v.to(dtype).requires_grad_()
+        out = fn(qq, kk, vv, g)
+        (out.float() * ct).sum().backward()
+        outs.append(out)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    _assert_kernel_close(*outs)
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_spmm_t2_equals_two_spmm_t_bit_for_bit(dev, D, dtypes, graph):
+    """The dual transposed SpMM gives the bits of two single launches, for
+    a first operand of width D (values' dtype, out dtype) and a second of
+    width 64 in f32, as the attention backward pairs dvalues and dk; on
+    the wide graph over its row-expanded view."""
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    src, mask = g.ell_src, g.ell_mask
+    if graph == "wide":
+        xp = g.bsp_expanded
+        src, mask = bsp.expand_ell_view(src, mask, xp.rows, xp.width)
+    Vs = g.max_nodes
+    x1, x2 = _inputs(dev, src.shape[0], D, 64, seed=19)
+    x1 = x1.to(dtypes[0])
+    w1 = bsp.masked_softmax(_inputs(dev, src.shape[0], src.shape[1], seed=20)[0],
+                            mask)
+    (w2,) = _inputs(dev, src.shape[0], src.shape[1], seed=21)
+    w2 = torch.where(mask, w2, 0.0)
+    before = bsp.launch_counts()
+    out1, out2 = bsp.spmm_t2(w1, x1, w2, x2, src, mask, Vs, dtypes[1])
+    mid = bsp.launch_counts()
+    one = bsp.spmm_t(w1, x1, src, mask, Vs, dtypes[1])
+    two = bsp.spmm_t(w2, x2, src, mask, Vs)
+    torch.cuda.synchronize()
+    assert {n: mid[n] - before[n] for n in mid if mid[n] != before[n]} \
+        == {"bsp_spmm_t2": 1}
+    assert out1.dtype == dtypes[1] and out2.dtype == torch.float32
+    assert torch.equal(out1, one) and torch.equal(out2, two)
+    # f32 sums of up to 200 random-normal products, in another order
+    torch.testing.assert_close(
+        out2, bsp.spmm_t_reference(w2, x2, src, mask, Vs), rtol=2e-5,
+        atol=2e-5 * src.shape[1] ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_dual_backward_gives_the_same_bits(dev, dtype, graph, monkeypatch):
+    """The fused attention's backward launches one spmm_t2 and gives the
+    gradients of two spmm_t launches in its place, bit for bit."""
+    from mrp_gnn_tpu_torch.ops import dispatch
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    q, k, v, ct = _inputs(dev, g.max_nodes, 64, 64, 2048, 2048, seed=22)
+    ops = dispatch.get_ops("pallas")
+    spmm_t = bsp.spmm_t
+
+    def separate(w1, x1, w2, x2, src, mask, num_rows, out1_dtype=None,
+                 out2_dtype=None, view=None):
+        return (spmm_t(w1, x1, src, mask, num_rows, out1_dtype, view),
+                spmm_t(w2, x2, src, mask, num_rows, out2_dtype, view))
+
+    separate.launches = 0
+    grads, counts = [], []
+    for run in range(2):
+        if run:
+            monkeypatch.setattr(bsp, "spmm_t2", separate)
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vv = v.to(dtype).requires_grad_()
+        out = ops.ell_attention(qq, kk, vv, g)
+        before = (bsp.spmm_t.launches, bsp.spmm_t2.launches)
+        (out.float() * ct).sum().backward()
+        counts.append((bsp.spmm_t.launches - before[0],
+                       bsp.spmm_t2.launches - before[1]))
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    assert counts == [(0, 1), (2, 0)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

@@ -1,6 +1,6 @@
 """The port's synthetic scenes and batches are identical to the JAX
-package's for the same seed and index (renderer pinned to numpy on both
-sides: the native renderer draws its noise from another RNG)."""
+package's for the same seed and index (renderer and graph builder pinned
+to numpy on both sides; tests/test_torch_native.py holds the native ones)."""
 
 import dataclasses
 
@@ -60,9 +60,16 @@ def test_batches_match_jax(name, split):
 
 
 def test_renderer_native_not_ported():
-    td = _cfgs("dynamic_swarm", )[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.SceneDataset(dataclasses.replace(td, renderer="native"))
+    """The native renderer is ported: renderer "native" gives the JAX
+    package's native scenes bit for bit; an unknown renderer raises."""
+    jd, td = (dataclasses.replace(d, renderer="native")
+              for d in _cfgs("dynamic_swarm"))
+    a, b = tp.SceneDataset(td)[2], jp.SceneDataset(jd)[2]
+    for key in ("images", "depth", "seg", "positions"):
+        assert a[key].dtype == b[key].dtype
+        assert np.array_equal(a[key], b[key]), key
+    with pytest.raises(ValueError, match="renderer"):
+        tp.SceneDataset(dataclasses.replace(td, renderer="opengl"))
 
 
 def test_pad_nodes_matches_jax():

@@ -134,15 +134,23 @@ def test_pinned_high_degree_batch_matches_jax_without_plan():
 
 
 def test_unported_paths_raise():
-    """Only the native builder is left; a wide ELL layout builds its plan."""
+    """No builder path is left unported: a wide ELL layout builds its plan,
+    and backend "native" gives the JAX package's native bits (an unknown
+    backend raises)."""
     n = 140
     edges = tg.fully_connected_edges(n)
     g = tg.build_graph_batch([edges], [n], max_nodes=256,
                              max_edges=edges.shape[1])
     assert g.bsp_expanded is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.batch_from_positions([np.arange(4.0)], 1.0, max_nodes=8,
-                                max_edges=12, max_degree=3, backend="native")
+    rng = np.random.default_rng(4)
+    pos = [np.arange(16.0) + rng.uniform(-1, 1, 16) for _ in range(2)]
+    caps = dict(max_nodes=32, max_edges=2 * 16 * 15, max_degree=15,
+                max_bsp_pairs=4)
+    assert_graph_equal(
+        tg.batch_from_positions(pos, 2.5, backend="native", **caps),
+        jg.batch_from_positions(pos, 2.5, backend="native", **caps))
+    with pytest.raises(ValueError, match="backend"):
+        tg.batch_from_positions(pos, 2.5, backend="cuda", **caps)
 
 
 @pytest.mark.parametrize("n,V", [(130, 256), (193, 256), (257, 384),

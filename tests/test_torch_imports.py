@@ -36,7 +36,9 @@ def test_scan_covers_the_package():
     assert "mrp_gnn_tpu_torch/losses.py" in names
     assert "mrp_gnn_tpu_torch/train.py" in names
     assert "mrp_gnn_tpu_torch/data/pipeline.py" in names
-    assert len(names) >= 18
+    for mod in ("native", "graph_native", "_native_loader"):
+        assert f"mrp_gnn_tpu_torch/data/{mod}.py" in names
+    assert len(names) >= 21
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
