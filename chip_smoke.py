@@ -23,7 +23,9 @@ seeded weights; numpy renderer and graph builder unless said otherwise):
   attention (the weights kernel, then the SpMM) swapped in.
 
 The fused attention's backward (attention and hideg) takes dvalues and dk
-from one launch of the dual transposed SpMM.
+from one launch of the dual transposed SpMM; on the hideg path it runs on
+the node view of the row-expanded lists, where the SDDMM and the transposed
+SpMM take their tiled form (``bsp.tiled_form``: ELL width 192).
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -51,7 +53,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    crafted graph with a tight and a padded tile-pair plan, with the
    gradients of its Function and of the two-kernel attention; the dual
    transposed SpMM bit for bit against two single launches at the
-   attention backward's shapes and on the hideg path's expanded view;
+   attention backward's shapes and on the hideg path's node view; both
+   forms of the SDDMM and the transposed SpMM (per-edge and tiled, each
+   forced) at the hideg node view, on the crafted graphs of degree 100 and
+   200 and at the swarm's training batch, f32, bf16 and mixed operands,
+   single = dual and reruns bit for bit;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -62,11 +68,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. timings (medians): each kernel beside its bound, its plain version and
    a library yardstick; the block kernel against the einsum route at the
    benchmark's shape, forward and value gradient; the dual transposed SpMM
-   against two single launches, in turns; the Predictor's device-side batch latency and whole-request
-   latency; the train step's device time with the kernels and with the
-   plain ops, one whole step through ``train()`` (host clock, data
-   included; numpy renderer on the attention path, native renderer and
-   builder on the bsp2 path's config), peak memory, and profiler
+   against two single launches, in turns; the dual SDDMM at the hideg node
+   view; both forms of the dual SDDMM and the dual transposed SpMM in turns
+   at the swarm, hideg and fully connected teams of 9 to 129 robots (the
+   form rule's crossover); the Predictor's device-side batch latency and
+   whole-request latency; the train step's device time with the kernels
+   and with the plain ops, one whole step through ``train()`` (host clock,
+   data included; numpy renderer on the attention path, native renderer
+   and builder on the bsp2 path's config), peak memory, and profiler
    breakdowns of device time by kernel.
 
 The line before the last is a JSON object listing every kernel; the last
@@ -113,7 +122,9 @@ TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
                       "spmm_t_kernel", "spmm_t2_kernel", "fused_parts_kernel",
                       "weights_kernel", "ell_max_kernel", "ell_softmax_kernel",
-                      "block_attention_kernel")
+                      "block_attention_kernel", "tile_flags_kernel",
+                      "sddmm_tiled_kernel", "sddmm_finish_kernel",
+                      "densify_kernel", "spmm_t_tiled_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
@@ -757,30 +768,24 @@ def check_weights(x: dict, tag: str) -> tuple:
     return got, err
 
 
-def backward_view(x: dict, expanded: bool) -> dict:
+def backward_view(x: dict) -> dict:
     """The transposed SpMMs' operands of the attention backward on
-    ``x["graph"]``: over its ELL lists, or over its row-expanded view (q_s
-    and the cotangent repeated R times, alpha and dlog split into rows)."""
+    ``x["graph"]``'s ELL lists (on the hideg graph, the node view that its
+    backward passes), with a source view for the per-edge form."""
     g = x["graph"]
     src, mask = g.ell_src, g.ell_mask
-    q_s, ct, alpha, dlog = x["q_s"], x["ct"], x["alpha"], x["dlog"]
-    if expanded:
-        xp = g.bsp_expanded
-        src, mask = bsp.expand_ell_view(src, mask, xp.rows, xp.width)
-        alpha, dlog = (bsp._expand_rows(t, xp.rows, xp.width)
-                       for t in (alpha, dlog))
-        q_s, ct = (t.repeat_interleave(xp.rows, dim=0) for t in (q_s, ct))
-    return {"src": src, "mask": mask, "q_s": q_s, "ct": ct, "alpha": alpha,
-            "dlog": dlog, "V": g.max_nodes,
+    return {"src": src, "mask": mask, "q_s": x["q_s"], "ct": x["ct"],
+            "alpha": x["alpha"], "dlog": x["dlog"], "V": g.max_nodes,
             "view": bsp.source_view(src, mask, g.max_nodes)}
 
 
-def check_spmm_t2(x: dict, tag: str, expanded: bool = False) -> float:
+def check_spmm_t2(x: dict, tag: str) -> float:
     """The dual transposed SpMM as the attention backward calls it, (alpha,
-    cotangent) -> dvalues and (dlog, q_s) -> dk, bit for bit against two
-    single launches and within tolerance of its plain version, with f32 and
-    bf16 values. Returns the f32 max abs err."""
-    b = backward_view(x, expanded)
+    cotangent) -> dvalues and (dlog, q_s) -> dk, in the form the rule
+    takes, bit for bit against two single launches and within tolerance of
+    its plain version, with f32 and bf16 values. Returns the f32 max abs
+    err."""
+    b = backward_view(x)
     src, mask, V, view = b["src"], b["mask"], b["V"], b["view"]
     err = 0.0
     for vdt in (torch.float32, torch.bfloat16):
@@ -814,7 +819,7 @@ def phase_bsp2_kernels(dev) -> dict:
     native graph builder) and on the crafted graph, with a tight and a
     padded tile-pair plan; the two-kernel attention's gradients; the dual
     transposed SpMM at the attention backward's shapes and on the hideg
-    path's expanded view."""
+    path's node view."""
     cfg = native_swarm_config()
     m = cfg.model
     hw = m.image_size[0] // m.bottleneck_stride
@@ -846,9 +851,182 @@ def phase_bsp2_kernels(dev) -> dict:
     errs["bsp_spmm_t2"] = check_spmm_t2(x, "bsp2 train")
     xh = backward_inputs(hideg_graph(dev), dk, D, 45, dev)
     errs["bsp_spmm_t2"] = max(errs["bsp_spmm_t2"],
-                              check_spmm_t2(xh, "hideg expanded view",
-                                            expanded=True))
+                              check_spmm_t2(xh, "hideg node view"))
     return {"inputs": x, "hideg": xh, "errs": errs}
+
+
+class _Uncounted:
+    """The launch counter of the forced-form calls below: launches that
+    compare a form with its plain version are not the main path's."""
+    launches = 0
+
+
+FORMS = ((False, "per-edge"), (True, "tiled"))
+
+
+def sddmm_form(tiled: bool, *args):
+    """bsp_sddmm.cu in the form given, whatever bsp.tiled_form says."""
+    return bsp.run_sddmm(_Uncounted, *args, tiled=tiled)
+
+
+def spmm_t_form(tiled: bool, pairs, src, mask, Vs: int):
+    """bsp_spmm_t.cu in the form given, over (w, x, out dtype) pairs."""
+    return bsp._run_spmm_t(_Uncounted, pairs, src, mask, Vs, None,
+                           tiled=tiled)
+
+
+def rule_form(g) -> str:
+    """The form bsp.tiled_form gives graph ``g``'s ELL lists."""
+    V, deg = g.ell_src.shape
+    return "tiled" if bsp.tiled_form(V, g.max_nodes, deg) else "per-edge"
+
+
+def check_forms(x: dict, tag: str, errs: dict | None = None) -> None:
+    """Both forms of the SDDMM and the transposed SpMM, each forced, against
+    their plain versions on the operands of ``backward_inputs`` (f32, bf16
+    and mixed operands): the dual SDDMM and a single one, bit for bit
+    against the dual's second output; the dual transposed SpMM, a single
+    one twice (bit for bit) and a second single one, the dual bit for bit
+    against the singles."""
+    g = x["graph"]
+    src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+    D = x["v"].shape[1]
+    named = torch.zeros(V, dtype=torch.bool, device=src.device)
+    named[src[mask].long()] = True
+    log(f"[kernel] {tag}: V {V}, deg {src.shape[1]}, edges "
+        f"{int(mask.sum())}, D {D}; the rule takes the {rule_form(g)} form")
+    want_lo = bsp.sddmm_reference(x["q_s"], x["kf"], src, mask)
+    want_dk = bsp.spmm_t_reference(x["dlog"], x["q_s"], src, mask, V)
+    for vdt, gdt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.bfloat16)):
+        v, ct = x["v"].to(vdt), x["ct"].to(gdt)
+        want_da = bsp.sddmm_reference(ct, v, src, mask)
+        want_dv = bsp.spmm_t_reference(x["alpha"], ct, src, mask, V, vdt)
+        for tiled, form in FORMS:
+            name = f"{form}, {tag}, values {vdt} cotangent {gdt}"
+            lo, da = sddmm_form(tiled, x["q_s"], x["kf"], src, mask, ct, v)
+            single = sddmm_form(tiled, ct, v, src, mask)
+            dv, dk = spmm_t_form(tiled, ((x["alpha"], ct, vdt),
+                                         (x["dlog"], x["q_s"], torch.float32)),
+                                 src, mask, V)
+            one = spmm_t_form(tiled, ((x["alpha"], ct, vdt),), src, mask, V)[0]
+            again = spmm_t_form(tiled, ((x["alpha"], ct, vdt),), src, mask,
+                                V)[0]
+            two = spmm_t_form(tiled, ((x["dlog"], x["q_s"], torch.float32),),
+                              src, mask, V)[0]
+            torch.cuda.synchronize()
+            e1 = check_kernel_vs_plain(f"bsp_sddmm logits, {name}", lo,
+                                       want_lo, False)
+            e2 = check_kernel_vs_plain(f"bsp_sddmm dalpha, {name}", da,
+                                       want_da, False, scale=D ** 0.5)
+            e3 = check_kernel_vs_plain(f"bsp_spmm_t2 dvalues, {name}", dv,
+                                       want_dv, vdt == torch.bfloat16)
+            e4 = check_kernel_vs_plain(f"bsp_spmm_t2 dk, {name}", dk, want_dk,
+                                       False)
+            if not torch.equal(single, da):
+                raise AssertionError(f"bsp_sddmm, {name}: the single form "
+                                     "differs from the dual's second output")
+            if not (torch.equal(one, again) and torch.equal(dv, one)
+                    and torch.equal(dk, two)):
+                raise AssertionError(f"bsp_spmm_t, {name}: two runs differ, "
+                                     "or the dual is not bit-equal to two "
+                                     "single launches")
+            if not (bool((da[~mask] == 0).all())
+                    and bool((dv[~named] == 0).all())
+                    and bool((dk[~named] == 0).all())):
+                raise AssertionError(f"{name}: masked slots and unnamed "
+                                     "sources must give 0")
+            if errs is not None and vdt == gdt == torch.float32:
+                errs[form] = max(errs.get(form, 0.0), e1, e2, e3, e4)
+    log(f"[kernel] {tag}: both forms agree with the plain versions; single "
+        "= dual bit for bit; transposed SpMM reruns bit for bit")
+
+
+def phase_form_kernels(dev) -> dict:
+    """Both forms of bsp_sddmm.cu and bsp_spmm_t.cu against their plain
+    versions at the hideg backward's node view, on the crafted graphs of
+    degree 100 and 200 (D 1030, the scalar loads, and 4096) and at the
+    swarm's training shape."""
+    m = swarm_config().model
+    hw = m.image_size[0] // m.bottleneck_stride
+    D, dk = hw * hw * m.encoder_channels[-1], m.attention_dim
+    errs = {}
+    xh = backward_inputs(hideg_graph(dev), dk, D, 51, dev)
+    check_forms(xh, "hideg node view", errs)
+    for name, cg in (("crafted", crafted_graph()),
+                     ("crafted wide", crafted_wide_graph())):
+        for D_c in (1030, 4096):
+            check_forms(backward_inputs(cg.to(dev), dk, D_c, 53, dev),
+                        f"{name} D {D_c}", errs)
+    g = next(iter(make_dataset(swarm_config().data, "train")))["graph"].to(dev)
+    xs = backward_inputs(g, dk, D, 55, dev)
+    check_forms(xs, "swarm train", errs)
+    return {"hideg": xh, "swarm": xs, "errs": errs, "dk": dk, "D": D}
+
+
+def phase_form_timings(fk: dict, tag: dict) -> None:
+    """Device time per call of each form of the dual SDDMM and the dual
+    transposed SpMM (f32), as the attention backward calls them, in turns
+    (per-edge, tiled, tiled, per-edge): at the swarm's training batch, at
+    the hideg node view, and on fully connected teams of n robots packed
+    into 512 node slots (ELL width n - 1): the crossover of the form rule."""
+    D, dk = fk["D"], fk["dk"]
+    x = fk["hideg"]
+    g = x["graph"]
+    src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+    edges = int(mask.sum())
+    rows_ = torch.arange(V, device=src.device)[:, None].expand_as(src)[mask]
+    pattern = _csr(rows_, src[mask].long(),
+                   torch.ones(edges, device=src.device), (V, V))
+    kT, vT = x["kf"].t().contiguous(), x["v"].t().contiguous()
+    time_kernel(
+        "bsp_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
+        "mrp_gnn_tpu/ops/pallas_bsp.py:905",
+        {"V": V, "deg": int(src.shape[1]), "d1": dk, "d2": D, "edges": edges,
+         "form": f"dual, {rule_form(g)}", "dtype": "float32",
+         "use": "logits and dalpha of the hideg backward, node view"},
+        lambda: bsp.sddmm(x["q_s"], x["kf"], src, mask, x["ct"], x["v"]),
+        lambda: (bsp.sddmm_reference(x["q_s"], x["kf"], src, mask),
+                 bsp.sddmm_reference(x["ct"], x["v"], src, mask)),
+        lambda: (torch.sparse.sampled_addmm(pattern, x["q_s"], kT, beta=0.0),
+                 torch.sparse.sampled_addmm(pattern, x["ct"], vT, beta=0.0)),
+        "torch.sparse.sampled_addmm x2 on the [V, V] pattern",
+        bound_ms((x["q_s"], x["kf"], x["ct"], x["v"], src, mask),
+                 (x["alpha"], x["dlog"]), 2 * edges * (dk + D)),
+        fk["errs"]["tiled"], tag)
+    graphs = [("swarm train", fk["swarm"]["graph"]),
+              ("hideg node view", fk["hideg"]["graph"])]
+    dev = fk["hideg"]["graph"].ell_src.device
+    for n in (9, 17, 33, 49, 65, 97, 129):
+        team = batch_fully_connected(512 // n, n, max_nodes=512)
+        graphs.append((f"{512 // n} x {n} fully connected", team.to(dev)))
+    rows = []
+    for seed, (name, g) in enumerate(graphs):
+        x = {"swarm train": fk["swarm"], "hideg node view": fk["hideg"]}.get(
+            name) or backward_inputs(g, dk, D, 57 + seed, dev)
+        src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+        edges, pairs = int(mask.sum()), len(bsp.tile_pairs(src, mask))
+        ms = {"sddmm": {"per-edge": [], "tiled": []},
+              "spmm_t2": {"per-edge": [], "tiled": []}}
+        for form in ("per-edge", "tiled", "tiled", "per-edge"):
+            tiled = form == "tiled"
+            ms["sddmm"][form].append(device_ms(lambda: sddmm_form(
+                tiled, x["q_s"], x["kf"], src, mask, x["ct"], x["v"])))
+            ms["spmm_t2"][form].append(device_ms(lambda: spmm_t_form(
+                tiled, ((x["alpha"], x["ct"], torch.float32),
+                        (x["dlog"], x["q_s"], torch.float32)), src, mask, V)))
+        rows.append({"graph": name, "V": V, "deg": int(src.shape[1]),
+                     "edges": edges, "tile_pairs": pairs,
+                     "fill": edges / (pairs * bsp.TILE ** 2),
+                     "rule": rule_form(g), "device_ms": ms})
+    log(json.dumps({"metric": "form_ab", "D1": D, "D2": dk, "rows": rows,
+                    "timing": "device time per call (profiler), f32, the "
+                              "dual SDDMM (q_s, k) + (g, values) and the dual "
+                              "transposed SpMM (alpha, g) + (dlog, q_s), the "
+                              "per-edge form including its source view; "
+                              "turns per-edge, tiled, tiled, per-edge",
+                    **tag}))
 
 
 def _expected(per: dict) -> dict:
@@ -1248,11 +1426,11 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
     pattern = _csr(rows, cols, torch.ones(edges, device=src.device), (V, V))
     kT = kf.t().contiguous()
     a_csr = _csr(rows, cols, alpha[mask], (V, V))
-    filled = logits.masked_fill(~mask, bsp._NEG)
     out = []
     for name, src_file, replaces, shp, fn, plain, lib, lib_name, bound in (
             ("ell_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
-             "mrp_gnn_tpu/ops/pallas_ell.py:268", {"d": dk},
+             "mrp_gnn_tpu/ops/pallas_ell.py:268",
+             {"d": dk, "form": rule_form(g)},
              lambda: ell.sddmm(q_s, kf, src, mask),
              lambda: bsp.sddmm_reference(q_s, kf, src, mask),
              lambda: torch.sparse.sampled_addmm(pattern, q_s, kT, beta=0.0),
@@ -1262,8 +1440,11 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
              "mrp_gnn_tpu/ops/pallas_ell.py:355", {},
              lambda: ell.softmax(logits, mask),
              lambda: bsp.masked_softmax(logits, mask),
-             lambda: torch.softmax(filled, dim=-1),
-             "torch.softmax of the logits filled with -1e30 on masked slots",
+             lambda: torch.where(mask.any(-1, keepdim=True), torch.softmax(
+                 logits.masked_fill(~mask, bsp._NEG), dim=-1), 0.0),
+             "Tensor.masked_fill(-1e30), torch.softmax, Tensor.any and "
+             "torch.where (0 on a row without a valid slot): four calls; no "
+             "single call computes the kernel's function",
              bound_ms((logits, mask), (logits,), 5 * V * deg)),
             ("ell_spmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm.cu",
              "mrp_gnn_tpu/ops/pallas_ell.py:47", {"D": D},
@@ -1280,7 +1461,7 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
 
 def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
     """The weights kernel at the bsp2 path's first train batch and the dual
-    transposed SpMM at the hideg path's expanded view (f32), beside their
+    transposed SpMM at the hideg path's node view (f32), beside their
     bounds, plain versions and library yardsticks; then the A/B of the dual
     against two single launches at the hideg and the swarm shapes, in
     turns."""
@@ -1311,8 +1492,8 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
         bound_ms((q_s, kf, src, mask), (alpha,), edges * (2 * dk + 1)),
         bk2["errs"]["bsp_weights"], tag)]
 
-    def operands(xx, expanded):
-        b = backward_view(xx, expanded)
+    def operands(xx):
+        b = backward_view(xx)
         srcb, maskb = b["src"], b["mask"]
         Vx, degx = srcb.shape
         r = torch.arange(Vx, device=srcb.device)[:, None].expand(Vx, degx)[maskb]
@@ -1333,16 +1514,17 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
             bsp.spmm_t(b["dlog"], b["q_s"], b["src"], b["mask"], b["V"],
                        view=b["view"]))
 
-    h = operands(bk2["hideg"], True)
+    h = operands(bk2["hideg"])
     D = h["ct"].shape[1]
     dv_out = torch.empty(h["V"], D, device=src.device)
     dk_out = torch.empty(h["V"], dk, device=src.device)
     out.append(time_kernel(
         "bsp_spmm_t2", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
         "mrp_gnn_tpu/ops/pallas_bsp.py:537",
-        {"V": h["V"], "rows": h["src"].shape[0], "width": h["src"].shape[1],
-         "D1": D, "D2": dk, "edges": h["edges"], "dtype": "float32",
-         "use": "dvalues and dk of the hideg backward"},
+        {"V": h["V"], "deg": h["src"].shape[1], "D1": D, "D2": dk,
+         "edges": h["edges"], "dtype": "float32", "form": rule_form(
+             bk2["hideg"]["graph"]),
+         "use": "dvalues and dk of the hideg backward, node view"},
         dual(h),
         lambda: bsp.spmm_t2_reference(h["alpha"], h["ct"], h["dlog"],
                                       h["q_s"], h["src"], h["mask"], h["V"]),
@@ -1355,7 +1537,7 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
         bk2["errs"]["bsp_spmm_t2"], tag))
 
     ab = {}
-    for label, b in (("hideg", h), ("bsp2", operands(x, False))):
+    for label, b in (("hideg", h), ("bsp2", operands(x))):
         times = {"dual": [], "separate": []}
         for name in ("separate", "dual", "dual", "separate"):
             fn = dual(b) if name == "dual" else separate(b)
@@ -1402,7 +1584,7 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     record("bsp_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
            "mrp_gnn_tpu/ops/pallas_bsp.py:377",
            {"V": V, "deg": deg, "d1": dk, "d2": D, "edges": edges,
-            "form": "dual", "dtype": "float32"},
+            "form": f"dual, {rule_form(g)}", "dtype": "float32"},
            lambda: bsp.sddmm(q_s, kf, src, mask, ct, v),
            lambda: (bsp.sddmm_reference(q_s, kf, src, mask),
                     bsp.sddmm_reference(ct, v, src, mask)),
@@ -1428,7 +1610,7 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     record("bsp_spmm_t", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
            "mrp_gnn_tpu/ops/pallas_bsp.py:459",
            {"V": V, "deg": deg, "D": D, "edges": edges, "use": "dvalues",
-            "dtype": "float32"},
+            "form": rule_form(g), "dtype": "float32"},
            lambda: bsp.spmm_t(alpha, ct, src, mask, V, view=view),
            lambda: bsp.spmm_t_reference(alpha, ct, src, mask, V),
            lambda: torch.sparse.mm(wt_csr, ct),
@@ -1542,6 +1724,7 @@ def main() -> int:
         bk = phase_block_kernels(dev)
         ek = phase_ell_kernels(dev)
         bk2 = phase_bsp2_kernels(dev)
+        fk = phase_form_kernels(dev)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -1583,6 +1766,7 @@ def main() -> int:
         kernels += phase_block_timings(bk, tag)
         kernels += phase_ell_timings(ek, tag)
         kernels += phase_bsp2_timings(bk2, tag)
+        phase_form_timings(fk, tag)
         phase_train_timings(tr["attention"], tag)
         for path in ("hideg", "mean", "max", "block", "ell", "bsp2"):
             predictor_timings(serve[path], tag, path)

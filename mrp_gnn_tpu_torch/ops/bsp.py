@@ -12,10 +12,15 @@ replacing the TPU's ``_fused_kernel``), with a backward
 - ``spmm`` (``csrc/bsp_spmm.cu``; ``_spmm_kernel``): weighted neighbour
   sums;
 - ``spmm_t`` (``csrc/bsp_spmm_t.cu``; ``_spmm_t_kernel``): the transposed
-  sums, driven by a source-major view of the valid slots
-  (:func:`source_view`) so that they need no float atomics; the
-  backward runs its dual form, ``spmm_t2`` (``_spmm_t2_kernel``), which
-  gives dvalues and dk from one launch.
+  sums, with no float atomics; the backward runs its dual form,
+  ``spmm_t2`` (``_spmm_t2_kernel``), which gives dvalues and dk from one
+  launch.
+
+The SDDMM and the transposed SpMM each have two forms, chosen by
+:func:`tiled_form` from the ELL shape: per-edge (a block per row, or per
+source over a source-major view of the valid slots, :func:`source_view`)
+and tiled (dense blocks per pair of node tiles that holds a valid slot,
+:func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
 
 ``bsp_attention`` is the JAX package's two-kernel form: ``attention_weights``
 (``csrc/bsp_weights.cu``; ``_weights_kernel``) emits alpha, with the
@@ -27,10 +32,10 @@ view of the neighbour lists (``graph.BspExpandedPlan``, at most 128 slots
 per expanded row): ``expanded_attention_fused`` through
 ``fused_attention_parts`` (``csrc/bsp_fused_parts.cu``, replacing the TPU's
 ``_fused_parts_kernel``) and :func:`xp_combine`, whose backward runs the
-same three kernels on the expanded view; ``expanded_mean`` through the
-SpMM. The CUDA kernels gather rows straight from ``ell_src``; the tile-pair
-plans only mark the batches they serve (``supports``,
-``supports_expanded``), as in the JAX package.
+same three kernels on the node view of the expanded lists;
+``expanded_mean`` through the SpMM. The CUDA kernels gather rows straight
+from ``ell_src``; the tile-pair plans only mark the batches they serve
+(``supports``, ``supports_expanded``), as in the JAX package.
 
 Each kernel has a wrapper and a plain torch version beside it. A wrapper
 runs the plain version for CPU tensors; for CUDA tensors it launches the
@@ -55,6 +60,13 @@ from mrp_gnn_tpu_torch.ops import reference as R
 _NEG = -1e30
 MAX_DEGREE = 128  # the fused kernels keep a row's slots in shared memory
 MAX_DK = 256      # the fused kernels keep a row's query in shared memory
+# The form rule of bsp_sddmm.cu and bsp_spmm_t.cu (:func:`tiled_form`): node
+# tiles of TILE (csrc/bsp_common.cuh kTile), the tiled form from an ELL
+# width of TILED_MIN_DEG, while the tiled transposed SpMM's dense [V, Vs]
+# weights stay within TILED_MAX_DENSE elements (64 MB in f32).
+TILE = 64
+TILED_MIN_DEG = 64
+TILED_MAX_DENSE = 1 << 24
 _KERNEL = "bsp_fused_attention"
 # The CUDA sources of the port (csrc/<name>.cu).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
@@ -199,6 +211,38 @@ def source_view(ell_src: torch.Tensor, ell_mask: torch.Tensor,
 
 
 # --- kernel wrappers ---------------------------------------------------------
+
+
+def tiled_form(V: int, Vs: int, deg: int) -> bool:
+    """The form rule of the SDDMM and transposed SpMM kernels, on the ELL
+    shape alone (no host sync, and the same form for the single and the dual
+    launch): the tiled form, dense blocks per (destination tile, source
+    tile) pair, from an ELL width of TILED_MIN_DEG and while a dense [V, Vs]
+    weight matrix fits TILED_MAX_DENSE elements; the per-edge form below it,
+    where a 64 x 64 block would be mostly empty. PERF.md section 6 gives the
+    crossover measured on the card."""
+    return deg >= TILED_MIN_DEG and V * Vs <= TILED_MAX_DENSE
+
+
+def tile_pairs(ell_src: torch.Tensor, ell_mask: torch.Tensor) -> torch.Tensor:
+    """The (destination tile, source tile) pairs of TILE nodes that hold a
+    valid slot, int64 [P, 2] in (dt, st) order: the blocks of work of the
+    tiled forms, whose kernels flag the same pairs on the device (plain
+    torch, for the tests and the timings' fill)."""
+    rows = torch.arange(ell_src.shape[0], device=ell_src.device)[:, None]
+    dt = rows.expand_as(ell_src)[ell_mask] // TILE
+    st = ell_src[ell_mask].long() // TILE
+    return torch.unique(torch.stack([dt, st], dim=1), dim=0)
+
+
+def _scratch(source: str, *args) -> int:
+    """Bytes of scratch for the tiled form of ``csrc/<source>.cu``, as its
+    ``<source>_scratch`` entry counts them."""
+    fn = getattr(_build.load(source), f"{source}_scratch")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_longlong
+    return int(fn(*args))
 
 
 def _vec8(*tensors) -> bool:
@@ -417,29 +461,43 @@ def sddmm(a1: torch.Tensor, b1: torch.Tensor, ell_src: torch.Tensor,
 sddmm.launches = 0
 
 
-def run_sddmm(counter, a1, b1, ell_src, ell_mask, a2=None, b2=None):
+def run_sddmm(counter, a1, b1, ell_src, ell_mask, a2=None, b2=None,
+              tiled: bool | None = None):
     """Check CUDA inputs and launch ``bsp_sddmm.cu`` (any ELL width),
     counting the launch in ``counter.launches``: :func:`sddmm` without the
-    plain path."""
+    plain path. ``tiled`` None takes the form :func:`tiled_form` gives;
+    True or False forces one (the card's tests of both forms)."""
     dual = a2 is not None
     pairs = dict(a1=a1, b1=b1, **(dict(a2=a2, b2=b2) if dual else {}))
     _check_cuda("bsp_sddmm", ell_src, ell_mask, max_deg=None, **pairs)
     V, deg = ell_src.shape
+    Vs = b1.shape[0]
     _check_pair(a1, b1, V)
     if dual:
         _check_pair(a2, b2, V)
+        if b2.shape[0] != Vs:
+            raise ValueError(f"b1 and b2 must have one row count, got {Vs} "
+                             f"and {b2.shape[0]}")
     out1 = torch.empty(V, deg, dtype=torch.float32, device=a1.device)
     out2 = torch.empty_like(out1) if dual else None
     if out1.numel():
+        if tiled is None:
+            tiled = tiled_form(V, Vs, deg)
+        d2 = a2.shape[1] if dual else 0
+        scratch = (torch.empty(_scratch("bsp_sddmm", V, Vs, deg, a1.shape[1],
+                                        d2), dtype=torch.uint8,
+                               device=a1.device) if tiled else None)
         _build.run(
             "bsp_sddmm", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                           ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p],
             a1.data_ptr(), b1.data_ptr(), a1.shape[1], _pair_flags(a1, b1),
             a2.data_ptr() if dual else None, b2.data_ptr() if dual else None,
-            a2.shape[1] if dual else 0, _pair_flags(a2, b2) if dual else 0,
+            d2, _pair_flags(a2, b2) if dual else 0,
             ell_src.data_ptr(), ell_mask.data_ptr(), out1.data_ptr(),
-            out2.data_ptr() if dual else None, V, deg, a1.device.index,
+            out2.data_ptr() if dual else None, V, deg, Vs, int(tiled),
+            scratch.data_ptr() if tiled else None, a1.device.index,
             _build.stream(a1))
         counter.launches += 1
     return (out1, out2) if dual else out1
@@ -487,9 +545,9 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
            view: tuple | None = None) -> torch.Tensor:
     """Kernel wrapper, same contract as :func:`spmm_t_reference`.
 
-    ``view``: the batch's :func:`source_view`, built here when not given.
-    Counted in
-    ``spmm_t.launches``.
+    ``view``: the batch's :func:`source_view`, which the per-edge form
+    walks; built here when that form runs and it is not given (the tiled
+    form needs none). Counted in ``spmm_t.launches``.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -521,9 +579,10 @@ def spmm_t2(w1: torch.Tensor, x1: torch.Tensor, w2: torch.Tensor,
     """Kernel wrapper, same contract as :func:`spmm_t2_reference`: both
     transposed SpMMs from one launch of the dual form of
     ``csrc/bsp_spmm_t.cu`` (the TPU's ``_spmm_t2_kernel``), over one
-    :func:`source_view`. x1 and x2 may differ in width and dtype. On CUDA
-    each output has the bits of a single :func:`spmm_t` launch; counted in
-    ``spmm_t2.launches``, apart from :func:`spmm_t`."""
+    :func:`source_view` where the per-edge form runs. x1 and x2 may differ
+    in width and dtype. On CUDA each output has the bits of a single
+    :func:`spmm_t` launch (both take the form of :func:`tiled_form`);
+    counted in ``spmm_t2.launches``, apart from :func:`spmm_t`."""
     out1_dtype = out1_dtype or x1.dtype
     out2_dtype = out2_dtype or x2.dtype
     if x1.device.type == "cpu":
@@ -544,13 +603,15 @@ def _spmm_t_flags(x: torch.Tensor, out: torch.Tensor) -> int:
 
 
 def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
-                view) -> list:
-    """Check CUDA inputs and launch ``bsp_spmm_t.cu`` for one (w, x,
-    out_dtype) pair or two, counting the launch in ``counter.launches``."""
+                view, tiled: bool | None = None) -> list:
+    """Check CUDA inputs and launch ``bsp_spmm_t.cu`` (any ELL width) for
+    one (w, x, out_dtype) pair or two, counting the launch in
+    ``counter.launches``. ``tiled`` None takes the form :func:`tiled_form`
+    gives; True or False forces one (the card's tests of both forms)."""
     tensors = {}
     for i, (w, x, _) in enumerate(pairs, 1):
         tensors.update({f"w{i}": w, f"x{i}": x})
-    _check_cuda("bsp_spmm_t", ell_src, ell_mask, **tensors)
+    _check_cuda("bsp_spmm_t", ell_src, ell_mask, max_deg=None, **tensors)
     V, deg = ell_src.shape
     for w, x, out_dtype in pairs:
         if (w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES
@@ -571,23 +632,34 @@ def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
         return outs
     if V * deg == 0:
         return [o.zero_() for o in outs]
-    offsets, slots = view if view is not None else source_view(
-        ell_src, ell_mask, num_rows)
-    if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
-        raise ValueError("view does not fit this batch and num_rows")
+    if tiled is None:
+        tiled = tiled_form(V, num_rows, deg)
+    x = pairs[0][1]
+    if tiled:
+        offsets = slots = None
+        scratch = torch.empty(_scratch("bsp_spmm_t", V, num_rows,
+                                       int(len(pairs) > 1)),
+                              dtype=torch.uint8, device=x.device)
+    else:
+        offsets, slots = view if view is not None else source_view(
+            ell_src, ell_mask, num_rows)
+        if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
+            raise ValueError("view does not fit this batch and num_rows")
+        offsets, slots, scratch = offsets.data_ptr(), slots.data_ptr(), None
     args = []
-    for (w, x, _), out in zip(pairs, outs):
-        args += [w.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[1],
-                 _spmm_t_flags(x, out)]
+    for (w, x_i, _), out in zip(pairs, outs):
+        args += [w.data_ptr(), x_i.data_ptr(), out.data_ptr(), x_i.shape[1],
+                 _spmm_t_flags(x_i, out)]
     if len(pairs) == 1:
         args += [None, None, None, 0, 0]
-    x = pairs[0][1]
     _build.run("bsp_spmm_t",
                ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]) * 2
-               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-               + [ctypes.c_void_p],
-               *args, offsets.data_ptr(), slots.data_ptr(), num_rows, deg,
-               x.device.index, _build.stream(x))
+               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+               *args, offsets, slots, ell_src.data_ptr(), ell_mask.data_ptr(),
+               V, num_rows, deg, int(tiled),
+               scratch.data_ptr() if tiled else None, x.device.index,
+               _build.stream(x))
     counter.launches += 1
     return outs
 
@@ -622,39 +694,36 @@ def _softmax_bwd(alpha: torch.Tensor, g: torch.Tensor,
     return torch.where(mask, dlog, 0.0)
 
 
-def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g,
-                             rows: int = 1) -> tuple:
+def fused_attention_backward(q_s, k, values, ell_src, ell_mask, g) -> tuple:
     """(dq_s, dk, dvalues) of the fused attention for the output cotangent
     ``g``, each sparse product a kernel on CUDA.
 
-    rows 1: the steps of the JAX package's ``_bsp_fused_bwd``
-    (``pallas_bsp.py:865-890``). rows R > 1: those of ``_xp_fused_bwd``
-    (``:1333-1376``) over the row-expanded view ``ell_src``/``ell_mask``
-    [V * R, W]: q_s and g repeated R times, the softmax on the logits
-    folded to [V, R * W], and dq summed over each node's R rows.
-    dvalues and dk come from one :func:`spmm_t2` launch after dlog, where
-    the JAX backwards run two ``_spmm_t_kernel`` sweeps; on the card it
-    gives the bits of two :func:`spmm_t` launches.
+    ``ell_src``/``ell_mask`` [V, deg]: the steps of the JAX package's
+    ``_bsp_fused_bwd`` (``pallas_bsp.py:865-890``). A row-expanded view
+    [V * R, W] (the high-degree path): those of ``_xp_fused_bwd``
+    (``:1333-1376``), the SDDMM and the transposed SpMMs on its node view
+    [V, R * W] (one reshape: the same slots, pad columns mask-False), so
+    they take q_s and g as they are, where JAX repeats them R times for its
+    128-column kernels; each slot gets the same dot and each source the
+    same sums. dq stays on the expanded view, as in JAX (rows of W slots
+    are shorter chains for the per-row SpMM), summed over each node's R
+    rows. dvalues and
+    dk come from one :func:`spmm_t2` launch after dlog, where the JAX
+    backwards run two ``_spmm_t_kernel`` sweeps; on the card it gives the
+    bits of two :func:`spmm_t` launches.
     """
     V = q_s.shape[0]
     g = g.contiguous()  # may arrive as a permuted view (models/fusion.py)
-    q_x, g_x = q_s, g
-    if rows > 1:
-        q_x = q_s.repeat_interleave(rows, dim=0)
-        g_x = g.repeat_interleave(rows, dim=0)
-    logits, dalpha = sddmm(q_x, k, ell_src, ell_mask, g_x, values)
-    mask = ell_mask.reshape(V, -1)
-    alpha = masked_softmax(logits.reshape(V, -1), mask)
-    view = (source_view(ell_src, ell_mask, values.shape[0])
-            if values.is_cuda else None)
-    alpha = alpha.reshape(ell_src.shape)
-    dlog = _softmax_bwd(alpha.reshape(V, -1), dalpha.reshape(V, -1),
-                        mask).reshape(ell_src.shape)
-    dq = spmm(dlog, k, ell_src, ell_mask)
-    if rows > 1:
-        dq = dq.reshape(V, rows, -1).float().sum(dim=1)
-    dvalues, dk = spmm_t2(alpha, g_x, dlog, q_x, ell_src, ell_mask,
-                          values.shape[0], values.dtype, k.dtype, view)
+    src_x, mask_x = ell_src, ell_mask
+    ell_src, ell_mask = ell_src.reshape(V, -1), ell_mask.reshape(V, -1)
+    logits, dalpha = sddmm(q_s, k, ell_src, ell_mask, g, values)
+    alpha = masked_softmax(logits, ell_mask)
+    dlog = _softmax_bwd(alpha, dalpha, ell_mask)
+    dq = spmm(dlog.reshape(src_x.shape), k, src_x, mask_x)
+    if src_x.shape[0] != V:
+        dq = dq.reshape(V, -1, dq.shape[1]).float().sum(dim=1)
+    dvalues, dk = spmm_t2(alpha, g, dlog, q_s, ell_src, ell_mask,
+                          values.shape[0], values.dtype, k.dtype)
     return dq.to(q_s.dtype), dk, dvalues
 
 
@@ -721,14 +790,13 @@ class ExpandedFusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_s, k, values, src_x, mask_x, rows):
         ctx.save_for_backward(q_s, k, values, src_x, mask_x)
-        ctx.rows = rows
         acc, m, l = fused_attention_parts(q_s.repeat_interleave(rows, dim=0),
                                           k, values, src_x, mask_x)
         return xp_combine(acc, m, l, q_s.shape[0], rows, values.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        grads = fused_attention_backward(*ctx.saved_tensors, g, rows=ctx.rows)
+        grads = fused_attention_backward(*ctx.saved_tensors, g)
         return (*grads, None, None, None)
 
 

@@ -2,8 +2,8 @@
 // bsp_fused_parts.cu, bsp_weights.cu, bsp_sddmm.cu, bsp_spmm.cu,
 // bsp_spmm_t.cu, ell_max.cu, ell_softmax.cu, block_attention.cu): 16-byte
 // vector loads and stores with f32 arithmetic, warp reductions, the
-// compaction of a row's valid slots, a row's softmax weights and the body
-// of the fused attention.
+// compaction of a row's valid slots, a row's softmax weights, the body of
+// the fused attention and the node tile of the tiled forms.
 
 #pragma once
 
@@ -18,6 +18,11 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxDeg = 128;  // a row's slots are kept in shared memory
 constexpr int kMaxDk = 256;   // the fused attention keeps a row's query there
 constexpr float kNeg = -1e30f;  // the masked logit of the reference ops
+// The node tile of the tiled forms of bsp_sddmm.cu and bsp_spmm_t.cu: both
+// cut the destination and the source axis into tiles of kTile nodes and
+// work on each (destination tile, source tile) pair that holds a valid
+// slot as a dense block (bsp.py::TILE).
+constexpr int kTile = 64;
 
 // VEC consecutive elements of T, converted to and from f32. VEC 8 reads
 // 32 bytes of f32 or 16 bytes of bf16 and needs the address aligned to 16

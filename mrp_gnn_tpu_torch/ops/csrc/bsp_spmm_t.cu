@@ -23,25 +23,57 @@
 // sweeps past an x2 width of 512 is a VMEM limit that this kernel does not
 // have.
 //
-// Deterministic, with no float atomics: the caller passes a source-major
-// view of the valid slots (bsp.py::source_view, built on the device with a
-// stable sort), `offsets` [Vs + 1] and `slots` (v * deg + j, in (v, j)
-// order within each source). Each output element is one chain of f32 FMAs
-// over its source's slots in that order, in both forms, so two launches
-// give the same bits and the dual form gives the bits of two single ones.
+// Two forms, deterministic (no float atomics: two launches give the same
+// bits, and the dual form gives the bits of two single ones, since each
+// output of a form is one fixed chain of f32 FMAs that does not depend on
+// the other pair). Which runs is a rule on the ELL shape, applied by the
+// caller (bsp.py::tiled_form, the same rule as bsp_sddmm.cu's), so the
+// single and the dual form always take the same one. PERF.md section 6
+// gives the crossover measured on the card.
 //
-// Bound: bytes. The function reads w, x, ell_src and ell_mask once and
-// writes out once; at dvalues' shape (V 256, D 8192, f32) that is 16.8 MB,
-// about 5 us at 3.35 TB/s. The gathers read each x row once per out-edge
-// (about 6.6 times), mostly from the 50 MB L2.
+// Per-edge form. The caller passes a source-major view of the valid slots
+// (bsp.py::source_view, built on the device with a stable sort), `offsets`
+// [Vs + 1] and `slots` (v * deg + j, in (v, j) order within each source).
+// Each output element is one chain of f32 FMAs over its source's slots in
+// that order. Bound: bytes. The function reads w, x, ell_src and ell_mask
+// once and writes out once; at dvalues' shape (V 256, D 8192, f32) that is
+// 16.8 MB, about 5 us at 3.35 TB/s. The gathers read each x row once per
+// out-edge (about 6.6 times), mostly from the 50 MB L2. One block per
+// (source row, chunk of the feature axis); each thread walks the source's
+// slot list (uniform loads, served by L1) and streams its VEC features of
+// each destination row with 16-byte loads and f32 FMAs, then writes its
+// features of the output row once. In the dual form thread t owns features
+// [t * VEC1, ...) of x1 and [t * VEC2, ...) of x2, so the threads that own
+// features of both read each slot's index and destination once for both.
 //
-// Design: one block per (source row, chunk of the feature axis); each
-// thread walks the source's slot list (uniform loads, served by L1) and
-// streams its VEC features of each destination row with 16-byte loads and
-// f32 FMAs, then writes its features of the output row once. In the dual
-// form thread t owns features [t * VEC1, ...) of x1 and [t * VEC2, ...) of
-// x2, so the threads that own features of both read each slot's index and
-// destination once for both sums.
+// Tiled form. Bound: operations at a wide ELL. At the high-degree
+// backward's node view (V 512, deg 192, 74,112 edges, D 8192 and dk 64) the
+// function is 1.22 GFLOP (0.018 ms at 67 TFLOP/s f32) against 52 MB; the
+// per-edge form streams a destination row of x from L2 for every out-edge,
+// 2.4 GB at one FMA per 4 bytes. Here the node axes are cut into tiles of
+// kTile = 64, and x is read from L2 once per (source tile, destination
+// tile) pair that holds a valid slot. Three steps:
+// 1. the pair flags are cleared (one memset of nt x nts bytes);
+// 2. densify_kernel, one block per destination row v: the row of a dense
+//    weight matrix W[v, s] (f32 [nt * 64, nts * 64], in scratch) gets the
+//    sum of w over the row's valid slots naming s, 0 elsewhere, and the flag
+//    of each (dt, st) pair it touches. Duplicates are added in slot order by
+//    the thread of their first slot (no float atomics); integer counts find
+//    the rows that have any. The dual form fills both weight matrices in
+//    this one walk of the slots;
+// 3. spmm_t_tiled_kernel, grid (feature chunks of 128 of both outputs,
+//    source tiles): the block walks the destination tiles in order, skips
+//    those whose flag is 0, stages the [64, 64] tile of W and x[dst tile,
+//    chunk] in shared memory (48 KB a pair, two buffers: the next pair's
+//    tiles are copied in with cp.async while the current ones are
+//    multiplied; bf16 or unaligned x rows go through registers) and
+//    accumulates an 8 x 8 register tile per thread (128 threads; four
+//    16-byte shared-memory reads per 64 FMAs) with f32 FMAs, v ascending,
+//    then writes its outputs once. Two blocks per SM.
+// Each output element is then one chain over the destination nodes in
+// order, with a node's duplicate slots pre-summed. As with the TPU kernel's
+// dense product per tile pair, a non-finite x element spreads to its tile's
+// outputs through a zero weight; the training step's operands are finite.
 
 #include "bsp_common.cuh"
 
@@ -212,23 +244,308 @@ cudaError_t launch_dual(const float* w1, const void* x1, void* out1,
   return cudaGetLastError();
 }
 
+// --- the tiled form ---------------------------------------------------------
+
+constexpr int kT = bsp::kTile;   // nodes per tile
+constexpr int kF = 128;          // features per block
+constexpr int kThreads = 128;    // 8 x 16 threads, 8 sources x 8 features each
+
+struct Pair {
+  const float* w;   // [V, deg]
+  const void* x;    // [V, D]
+  void* out;        // [Vs, D]
+  long long D;
+  int flags;
+  float* W;         // the dense [nt * kT, nts * kT] weights, in scratch
+};
+
+// grid V, block a multiple of 32: row v of W1 (and W2), and the flags of
+// the tile pairs its valid slots join. The row of W1 first counts the slots
+// naming each source (integer atomics: the same counts every launch); a row
+// in which no source is named twice then writes each slot's weight, and a
+// row with a duplicate sums each source's weights in slot order, by the
+// thread of its first slot.
+__global__ void __launch_bounds__(bsp::kMaxThreads)
+densify_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+               const int32_t* __restrict__ ell_src,
+               const uint8_t* __restrict__ ell_mask, float* __restrict__ W1,
+               float* __restrict__ W2, uint8_t* __restrict__ flags, int deg,
+               int VsP, int nts) {
+  const long long v = blockIdx.x;
+  float* r1 = W1 + v * VsP;
+  float* r2 = W2 != nullptr ? W2 + v * VsP : nullptr;
+  int* count = reinterpret_cast<int*>(r1);  // 0.f and 0 have the same bits
+  for (int i = threadIdx.x; i < VsP; i += blockDim.x) {
+    r1[i] = 0.f;
+    if (r2 != nullptr) r2[i] = 0.f;
+  }
+  __syncthreads();
+  const int32_t* src = ell_src + v * deg;
+  const uint8_t* mask = ell_mask + v * deg;
+  for (int j = threadIdx.x; j < deg; j += blockDim.x)
+    if (mask[j]) atomicAdd(count + src[j], 1);
+  __syncthreads();
+  bool dup = false;
+  for (int j = threadIdx.x; j < deg; j += blockDim.x)
+    if (mask[j]) dup |= __ldcg(count + src[j]) > 1;
+  dup = __syncthreads_or(dup);  // every count is read before any is replaced
+  for (int j = threadIdx.x; j < deg; j += blockDim.x) {
+    if (!mask[j]) continue;
+    const int32_t s = src[j];
+    float t1 = w1[v * deg + j];
+    float t2 = w2 != nullptr ? w2[v * deg + j] : 0.f;
+    if (dup) {
+      bool first = true;
+      for (int i = 0; i < j && first; ++i) first = !(mask[i] && src[i] == s);
+      if (!first) continue;  // the thread of the first such slot sums them
+      for (int i = j + 1; i < deg; ++i) {
+        if (mask[i] && src[i] == s) {
+          t1 += w1[v * deg + i];
+          if (w2 != nullptr) t2 += w2[v * deg + i];
+        }
+      }
+    }
+    r1[s] = t1;
+    if (r2 != nullptr) r2[s] = t2;
+    flags[(v / kT) * nts + s / kT] = 1;
+  }
+}
+
+constexpr int kWTile = kT * kT;             // floats of a W tile, Ws[v][s]
+constexpr int kXTile = kT * kF;             // floats of an x tile, Xs[v][f]
+constexpr int kStage = kWTile + kXTile;     // one buffer
+constexpr int kSmemBytes = 2 * kStage * 4;  // two buffers: 96 KB
+
+// A 16-byte cp.async from global to shared memory; !full copies nothing and
+// fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
+// x[v0 + i, f0 + f] for i < nv and f0 + f < D (0 elsewhere) -> Xs[i][f],
+// through registers (bf16 rows are widened on the way; rows that are not
+// 16-byte aligned take VEC 1): every load is issued before the first store.
+template <typename TX, int VEC>
+__device__ __forceinline__ void stage_x(const TX* __restrict__ x, long long D,
+                                        long long v0, int nv, long long f0,
+                                        float* __restrict__ Xs) {
+  constexpr int kGroups = kF / VEC;
+  constexpr int kPer = kT * kGroups / kThreads;
+  constexpr int kBatch = 16 / VEC;  // 16 floats in flight per thread
+  for (int q0 = 0; q0 < kPer; q0 += kBatch) {
+    float r[kBatch][VEC];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int idx = threadIdx.x + (q0 + q) * kThreads;
+      const int i = idx / kGroups;
+      const int f = (idx % kGroups) * VEC;
+      if (i < nv && f0 + f < D) {
+        VecIO<TX, VEC>::load(x + (v0 + i) * D + f0 + f, r[q]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) r[q][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int idx = threadIdx.x + (q0 + q) * kThreads;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        Xs[(idx / kGroups) * kF + (idx % kGroups) * VEC + e] = r[q][e];
+    }
+  }
+}
+
+// Starts the copies of destination tile dt's W tile and x tile into buffer
+// buf (one cp.async group; the register path's stores are done on return).
+__device__ __forceinline__ void stage_pair(const Pair& p, int dt, int V,
+                                           long long s0, long long VsP,
+                                           long long f0, float* buf) {
+  const long long v0 = static_cast<long long>(dt) * kT;
+  const int nv = min(kT, V - static_cast<int>(v0));
+  float* Ws = buf;
+  float* Xs = buf + kWTile;
+#pragma unroll
+  for (int q = 0; q < kWTile / 4 / kThreads; ++q) {
+    const int idx = threadIdx.x + q * kThreads;
+    const int i = idx / (kT / 4);
+    const int j = (idx % (kT / 4)) * 4;
+    const bool full = i < nv;
+    cp_async16(Ws + i * kT + j, full ? p.W + (v0 + i) * VsP + s0 + j : p.W,
+               full);
+  }
+  const bool xbf = p.flags & kXBf16;
+  const bool vec = p.flags & kVec8;
+  if (!xbf && vec) {
+    const float* x = static_cast<const float*>(p.x);
+#pragma unroll
+    for (int q = 0; q < kXTile / 4 / kThreads; ++q) {
+      const int idx = threadIdx.x + q * kThreads;
+      const int i = idx / (kF / 4);
+      const int f = (idx % (kF / 4)) * 4;
+      const bool full = i < nv && f0 + f < p.D;
+      cp_async16(Xs + i * kF + f, full ? x + (v0 + i) * p.D + f0 + f : x,
+                 full);
+    }
+  } else if (xbf) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+    if (vec) stage_x<__nv_bfloat16, 8>(x, p.D, v0, nv, f0, Xs);
+    else stage_x<__nv_bfloat16, 1>(x, p.D, v0, nv, f0, Xs);
+  } else {
+    stage_x<float, 1>(static_cast<const float*>(p.x), p.D, v0, nv, f0, Xs);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The first destination tile from dt on whose pair with source tile st
+// holds a valid slot, or nt.
+__device__ __forceinline__ int next_tile(const uint8_t* __restrict__ flags,
+                                         int dt, int nt, int nts, int st) {
+  while (dt < nt && !flags[static_cast<long long>(dt) * nts + st]) ++dt;
+  return dt;
+}
+
+// grid (c1 + c2 feature chunks, nts source tiles), block kThreads, kSmemBytes
+// of dynamic shared memory: block (chunk, st) writes out[s0 .. s0 + 63,
+// chunk's features] of pair p1 (chunk < c1) or p2. The next pair's tiles
+// are copied in while the current pair's are multiplied.
+__global__ void __launch_bounds__(kThreads, 2)
+spmm_t_tiled_kernel(Pair p1, Pair p2, int c1,
+                    const uint8_t* __restrict__ flags, int V, int Vs, int nt,
+                    int nts) {
+  extern __shared__ __align__(16) float smem[];
+  const int st = blockIdx.y;
+  const int ch = blockIdx.x;
+  const Pair p = ch < c1 ? p1 : p2;
+  const long long f0 = static_cast<long long>(ch < c1 ? ch : ch - c1) * kF;
+  const long long s0 = static_cast<long long>(st) * kT;
+  const long long VsP = static_cast<long long>(nts) * kT;
+  const int tx = threadIdx.x & 15;  // features tx * 4 + 64 h + c
+  const int ty = threadIdx.x >> 4;  // sources ty * 8 + r
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  int cur = next_tile(flags, 0, nt, nts, st);
+  int buf = 0;
+  if (cur < nt) stage_pair(p, cur, V, s0, VsP, f0, smem);
+  while (cur < nt) {
+    const int nxt = next_tile(flags, cur + 1, nt, nts, st);
+    if (nxt < nt) {  // the other buffer was last read before the last barrier
+      stage_pair(p, nxt, V, s0, VsP, f0, smem + (buf ^ 1) * kStage);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const float* Ws = smem + buf * kStage;
+    const float* Xs = Ws + kWTile;
+    const int nv = min(kT, V - cur * kT);
+#pragma unroll 4
+    for (int v = 0; v < nv; ++v) {
+      const float4 w0 = *reinterpret_cast<const float4*>(Ws + v * kT + ty * 8);
+      const float4 w1 = *reinterpret_cast<const float4*>(Ws + v * kT + ty * 8 + 4);
+      const float4 x0 = *reinterpret_cast<const float4*>(Xs + v * kF + tx * 4);
+      const float4 x1 = *reinterpret_cast<const float4*>(Xs + v * kF + 64 + tx * 4);
+      const float a[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], xv[c], acc[r][c]);
+    }
+    __syncthreads();  // this buffer is refilled two pairs on
+    buf ^= 1;
+    cur = nxt;
+  }
+
+  const bool obf = p.flags & kOutBf16;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const long long s = s0 + ty * 8 + r;
+    if (s >= Vs) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const long long f = f0 + (c < 4 ? 0 : 64) + tx * 4 + (c & 3);
+      const float val = acc[r][c];
+      if (f < p.D) store_row<1>(p.out, obf, s * p.D + f, &val);
+    }
+  }
+}
+
+long long chunks(long long D) { return D > 0 ? (D + kF - 1) / kF : 0; }
+
+long long tiled_scratch(int V, int Vs, int dual) {
+  const long long nt = (V + kT - 1) / kT;
+  const long long nts = (Vs + kT - 1) / kT;
+  return (dual ? 2 : 1) * (nt * kT) * (nts * kT) * 4 + nt * nts;
+}
+
+cudaError_t launch_tiled(Pair p1, Pair p2, const int32_t* ell_src,
+                         const uint8_t* ell_mask, int V, int Vs, int deg,
+                         void* scratch, cudaStream_t stream) {
+  const int nt = (V + kT - 1) / kT;
+  const int nts = (Vs + kT - 1) / kT;
+  const long long c1 = chunks(p1.D);
+  const long long c2 = chunks(p2.D);
+  if (nts > 65535 || c1 + c2 > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const long long dense = static_cast<long long>(nt) * kT * nts * kT;
+  p1.W = static_cast<float*>(scratch);
+  p2.W = c2 > 0 ? p1.W + dense : nullptr;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(p1.W + (c2 > 0 ? 2 : 1) * dense);
+  cudaError_t err = cudaMemsetAsync(flags, 0, static_cast<size_t>(nt) * nts, stream);
+  if (err != cudaSuccess) return err;
+  densify_kernel<<<static_cast<unsigned>(V), bsp::block_threads(deg), 0, stream>>>(
+      p1.w, c2 > 0 ? p2.w : nullptr, ell_src, ell_mask, p1.W, p2.W, flags,
+      deg, nts * kT, nts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(spmm_t_tiled_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  spmm_t_tiled_kernel<<<dim3(static_cast<unsigned>(c1 + c2), nts), kThreads,
+                        kSmemBytes, stream>>>(p1, p2, static_cast<int>(c1), flags, V, Vs,
+                                  nt, nts);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Bytes of scratch the tiled form needs (the caller allocates them).
+extern "C" long long bsp_spmm_t_scratch(int V, int Vs, int dual) {
+  return tiled_scratch(V, Vs, dual);
+}
 
 // flags1 / flags2: bit 0 x is bf16, bit 1 out is bf16, bit 2 16-byte loads
 // (D a multiple of 8, x and out 16-byte aligned). D2 == 0 (w2, x2, out2
-// unused) is the single form. Returns the CUDA error code of the launch
-// (0 on success).
+// unused) is the single form. V and deg: the ELL shape; Vs: the output rows.
+// tiled 0: the per-edge form over the source view (offsets, slots); 1: the
+// tiled form (offsets and slots unused), with bsp_spmm_t_scratch(...) bytes
+// of scratch. Returns the CUDA error code of the launch (0 on success).
 extern "C" int bsp_spmm_t(const float* w1, const void* x1, void* out1,
                           long long D1, int flags1, const float* w2,
                           const void* x2, void* out2, long long D2,
                           int flags2, const int32_t* offsets,
-                          const int32_t* slots, int Vs, int deg, int device,
-                          void* stream) {
-  if (Vs <= 0 || D1 <= 0 || D2 < 0 || deg <= 0)
+                          const int32_t* slots, const int32_t* ell_src,
+                          const uint8_t* ell_mask, int V, int Vs, int deg,
+                          int tiled, void* scratch, int device, void* stream) {
+  if (V <= 0 || Vs <= 0 || D1 <= 0 || D2 < 0 || deg <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled) {
+    return static_cast<int>(launch_tiled(
+        Pair{w1, x1, out1, D1, flags1, nullptr},
+        Pair{w2, x2, out2, D2, flags2, nullptr}, ell_src, ell_mask, V, Vs,
+        deg, scratch, s));
+  }
   if (D2 == 0) {
     err = launch_single(w1, x1, out1, D1, flags1, offsets, slots, Vs, deg, s);
   } else {

@@ -555,3 +555,85 @@ def test_dual_backward_gives_the_same_bits(dev, dtype, graph, monkeypatch):
     assert counts == [(0, 1), (2, 0)]
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+class _Uncounted:
+    launches = 0
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_sddmm_forms_match_plain(dev, tiled, D, dtypes, graph):
+    """Each form of bsp_sddmm.cu, forced, against the plain version: the
+    dual form (q, k) and (a, b), and a single (a, b) launch that gives the
+    dual's second output bit for bit; masked slots 0."""
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+    q, k, a, b = _inputs(dev, V, 64, 64, D, D, seed=23)
+    a, b = a.to(dtypes[0]), b.to(dtypes[1])
+    out1, out2 = bsp.run_sddmm(_Uncounted, q, k, src, mask, a, b, tiled=tiled)
+    single = bsp.run_sddmm(_Uncounted, a, b, src, mask, tiled=tiled)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out1, bsp.sddmm_reference(q, k, src, mask))
+    # D-long f32 sums of exact products: 2e-5 relative to the sum's size
+    torch.testing.assert_close(out2, bsp.sddmm_reference(a, b, src, mask),
+                               rtol=2e-5, atol=2e-5 * D ** 0.5)
+    assert torch.equal(single, out2)
+    assert bool((out2[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("graph", ["square", "wide"])
+def test_spmm_t_forms_match_plain_bit_for_bit(dev, tiled, D, dtypes, graph):
+    """Each form of bsp_spmm_t.cu, forced, against the plain version, as
+    the attention backward pairs dvalues (width D) and dk (width 64, f32):
+    two single launches give the same bits, the dual gives the bits of the
+    singles, and a source no valid slot names gives 0."""
+    g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+    src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+    x1, x2 = _inputs(dev, V, D, 64, seed=24)
+    x1 = x1.to(dtypes[0])
+    w1 = bsp.masked_softmax(_weights(g, 25), mask)
+    w2 = torch.where(mask, _weights(g, 26), 0.0)
+    p1, p2 = (w1, x1, dtypes[1]), (w2, x2, torch.float32)
+    out1, out2 = bsp._run_spmm_t(_Uncounted, (p1, p2), src, mask, V, None,
+                                 tiled=tiled)
+    one, again, two = (bsp._run_spmm_t(_Uncounted, (p,), src, mask, V, None,
+                                       tiled=tiled)[0] for p in (p1, p1, p2))
+    torch.cuda.synchronize()
+    assert torch.equal(one, again) and torch.equal(out1, one)
+    assert torch.equal(out2, two)
+    _assert_kernel_close(out1, bsp.spmm_t_reference(w1, x1, src, mask, V,
+                                                    dtypes[1]))
+    # f32 sums of up to 200 random-normal products, in another order
+    torch.testing.assert_close(
+        out2, bsp.spmm_t_reference(w2, x2, src, mask, V), rtol=2e-5,
+        atol=2e-5 * src.shape[1] ** 0.5)
+    unnamed = torch.ones(V, dtype=torch.bool, device=dev)
+    unnamed[src[mask].long()] = False
+    assert bool((out1[unnamed] == 0).all() and (out2[unnamed] == 0).all())
+
+
+def test_wrappers_take_the_form_of_the_rule(dev):
+    """bsp.sddmm and bsp.spmm_t2 give the bits of the form that
+    bsp.tiled_form picks for the ELL shape: per-edge at width 40, tiled at
+    width 200."""
+    for graph, want_tiled in (("square", False), ("wide", True)):
+        g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+        src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+        assert bsp.tiled_form(V, V, src.shape[1]) == want_tiled
+        a, b, x = _inputs(dev, V, 256, 256, 256, seed=27)
+        w = bsp.masked_softmax(_weights(g, 28), mask)
+        assert torch.equal(bsp.sddmm(a, b, src, mask), bsp.run_sddmm(
+            _Uncounted, a, b, src, mask, tiled=want_tiled))
+        assert torch.equal(bsp.spmm_t(w, x, src, mask, V), bsp._run_spmm_t(
+            _Uncounted, ((w, x, torch.float32),), src, mask, V, None,
+            tiled=want_tiled)[0])

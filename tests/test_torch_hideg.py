@@ -199,3 +199,84 @@ def test_new_wrappers_never_fall_back():
         bsp.fused_attention_parts(x, x, x, src, mask)
     with pytest.raises(RuntimeError, match="no ell_max kernel"):
         ell.masked_max(x, src, mask)
+
+
+def _crafted_wide():
+    """Duplicate edges, empty rows and a degree-200 row in 128 node slots:
+    ELL width 200, expanded to 2 rows of 104."""
+    a = np.array([[1, 1, 2, 3, 0, 5, 5, 5], [0, 0, 0, 1, 2, 4, 4, 4]])
+    wide = np.stack([np.arange(200) % 12, np.zeros(200, np.int64)])
+    caps = dict(max_nodes=128, max_edges=256)
+    return (jg.build_graph_batch([a, wide], [6, 12], **caps),
+            tg.build_graph_batch([a, wide], [6, 12], **caps))
+
+
+@pytest.mark.parametrize("graph", ["team", "crafted wide"])
+def test_node_view_backward_matches_jax_to_1e5(graph):
+    """ExpandedFusedAttention's backward runs on the node view [V, R * W] of
+    the expanded lists (q_s and g as they are, no repeat), on graphs whose
+    ELL width is not a multiple of the rows (so the view has pad columns):
+    q, k and values gradients against jax.grad of JAX
+    expanded_attention_fused (its _xp_fused_bwd on the expanded view, Pallas
+    in interpret mode) to 1e-5 of each gradient's largest element."""
+    jgb, tgb = _team() if graph == "team" else _crafted_wide()
+    xp = tgb.bsp_expanded
+    deg = int(tgb.ell_src.shape[1])
+    assert xp.rows * xp.width > deg  # pad columns in the node view
+    V = jgb.max_nodes
+    q, k, v, ct = _rand(V, 8, 8, 64, 64, seed=7)
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        JB.expanded_attention_fused(q, k, v, jgb) * ct), argnums=(0, 1, 2))(
+            q, k, v)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = bsp.expanded_attention_fused(*leaves, tgb)
+    (out * torch.from_numpy(ct)).sum().backward()
+    for t, w in zip(leaves, want):
+        w = np.asarray(w)
+        _close(t.grad, w, dict(rtol=0, atol=1e-5 * float(np.abs(w).max())))
+
+
+def test_node_view_is_a_reshape_of_the_expanded_view():
+    """The backward's node view holds the ELL lists' slots in order, pad
+    columns mask-False: each node's slots as the expanded view splits
+    them."""
+    _, tgb = _mixed()
+    xp = tgb.bsp_expanded
+    src_x, mask_x = bsp.expand_ell_view(tgb.ell_src, tgb.ell_mask, xp.rows,
+                                        xp.width)
+    V, deg = tgb.ell_src.shape
+    src_n, mask_n = src_x.reshape(V, -1), mask_x.reshape(V, -1)
+    assert torch.equal(mask_n[:, :deg], tgb.ell_mask)
+    assert not mask_n[:, deg:].any()
+    assert torch.equal(src_n[:, :deg][tgb.ell_mask], tgb.ell_src[tgb.ell_mask])
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_tile_pairs_match_the_host_pair_plan(graph):
+    """bsp.tile_pairs (the pair set the tiled kernels flag on the device)
+    against the numpy plan builder at the same tile, less the builder's
+    diagonal fallbacks for tiles without a valid slot."""
+    _, tgb = GRAPHS[graph]()
+    src, mask = tgb.ell_src, tgb.ell_mask
+    V = src.shape[0]
+    pd, ps, _, _ = tg.build_bsp_pairs(src.numpy(), mask.numpy(), bsp.TILE)
+    rows = np.arange(V)[:, None].repeat(src.shape[1], 1)[mask.numpy()]
+    cols = src.numpy()[mask.numpy()]
+    edged = {(int(r) // bsp.TILE, int(c) // bsp.TILE)
+             for r, c in zip(rows, cols)}
+    plan = {(int(d), int(s)) for d, s in zip(pd, ps)} & edged
+    got = {tuple(p) for p in bsp.tile_pairs(src, mask).tolist()}
+    assert got == plan == edged
+
+
+def test_form_rule_on_the_paths_shapes():
+    """The tiled forms run on the hideg backward's node view (V 512, deg
+    192) and its expanded view (deg 96), the per-edge forms at the swarm's
+    ELL width (32); a graph whose dense [V, Vs] weights pass 2^24 elements
+    stays per-edge."""
+    assert bsp.tiled_form(512, 512, 192)
+    assert bsp.tiled_form(1024, 512, 96)
+    assert not bsp.tiled_form(256, 256, 32)
+    assert not bsp.tiled_form(512, 512, bsp.TILED_MIN_DEG - 1)
+    assert bsp.tiled_form(4096, 4096, 64)
+    assert not bsp.tiled_form(8192, 4096, 200)
