@@ -25,7 +25,8 @@ seeded weights; numpy renderer and graph builder unless said otherwise):
 The fused attention's backward (attention and hideg) takes dvalues and dk
 from one launch of the dual transposed SpMM; on the hideg path it runs on
 the node view of the row-expanded lists, where the SDDMM and the transposed
-SpMM take their tiled form (``bsp.tiled_form``: ELL width 192).
+SpMM take their tiled form (``bsp.tiled_form``: ELL width 192), as does
+the hideg forward (``bsp.expanded_forward``).
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -41,12 +42,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    duplicate edges, a degree-100 row and padded nodes at D 1030 (scalar
    path) and 4096; the transposed SpMM twice, bit for bit; the fused
    attention's gradients against autograd through its plain version; the
-   parts kernel at the hideg shapes and the masked max at the preset's, and
-   both on a crafted graph with a degree-200 row (f32 and bf16; the max bit
-   for bit, NaN in giving NaN out), with the gradients of their Functions;
-   the block attention at the JAX benchmark's shape (1,024 scenes of 8,
-   dk 64, D 2048), at the block path's and on 2 scenes of 256 with padded
-   nodes (f32 and bf16, with the gradients of its Function); the ELL
+   parts kernel and both forms of the high-degree forward (each forced,
+   reruns bit for bit) at the hideg shapes and the masked max at the
+   preset's, and all of them on a crafted graph with a degree-200 row (f32
+   and bf16; the max bit for bit, NaN in giving NaN out), with the
+   gradients of their Functions; the block attention at the JAX
+   benchmark's shape (1,024 scenes of 8, dk 64, D 2048), at the block
+   path's, at scenes of 1, 9, 16, 32 and 33 and on 2 scenes of 256 with
+   padded nodes (f32 and bf16, with the gradients of its Function); the ELL
    SDDMM, softmax and SpMM at the ell path's first train batch and on the
    crafted graphs of degree 100 and 200, with their attention's gradients;
    the weights kernel at the bsp2 path's first train batch and on the
@@ -66,17 +69,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the launches of every kernel per step, and against the same three steps
    with the plain ops on the card;
 6. timings (medians): each kernel beside its bound, its plain version and
-   a library yardstick; the block kernel against the einsum route at the
-   benchmark's shape, forward and value gradient; the dual transposed SpMM
-   against two single launches, in turns; the dual SDDMM at the hideg node
-   view; both forms of the dual SDDMM and the dual transposed SpMM in turns
-   at the swarm, hideg and fully connected teams of 9 to 129 robots (the
-   form rule's crossover); the Predictor's device-side batch latency and
-   whole-request latency; the train step's device time with the kernels
-   and with the plain ops, one whole step through ``train()`` (host clock,
-   data included; numpy renderer on the attention path, native renderer
-   and builder on the bsp2 path's config), peak memory, and profiler
-   breakdowns of device time by kernel.
+   a library yardstick; both forms of the hideg forward in turns, with the
+   parts kernel and ``xp_combine`` apart; the block kernel against the
+   einsum route at the benchmark's shape, forward and value gradient; the
+   dual transposed SpMM against two single launches, in turns; the dual
+   SDDMM at the hideg node view; both forms of the dual SDDMM and the dual
+   transposed SpMM in turns at the swarm, hideg and fully connected teams
+   of 9 to 129 robots (the form rule's crossover); the Predictor's device-
+   side batch latency and whole-request latency; the train step's device
+   time with the kernels and with the plain ops, one whole step through
+   ``train()`` (host clock, data included; numpy renderer on the attention
+   path, native renderer and builder on the bsp2 path's config), peak
+   memory, and profiler breakdowns of device time by kernel, from which the
+   hideg and block paths are checked for the kernel bodies they must run
+   (``PATH_BODIES``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -124,7 +130,10 @@ PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
                       "weights_kernel", "ell_max_kernel", "ell_softmax_kernel",
                       "block_attention_kernel", "tile_flags_kernel",
                       "sddmm_tiled_kernel", "sddmm_finish_kernel",
-                      "densify_kernel", "spmm_t_tiled_kernel")
+                      "densify_kernel", "spmm_t_tiled_kernel",
+                      "fused_parts_weights_kernel", "fused_parts_tiled_kernel",
+                      "block_attention_f32_kernel",
+                      "block_attention_bf16_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
@@ -491,10 +500,28 @@ def crafted_wide_graph():
     return build_graph_batch([a, wide], [6, 12], max_nodes=128, max_edges=256)
 
 
+class _Uncounted:
+    """The launch counter of the forced-form calls below: launches that
+    compare a form with its plain version are not the main path's."""
+    launches = 0
+
+
+FORMS = ((False, "per-edge"), (True, "tiled"))
+
+
+def forward_form(tiled: bool, *args):
+    """bsp_fused_parts.cu's high-degree forward in the form given, whatever
+    bsp.tiled_form says."""
+    return bsp.run_expanded_forward(_Uncounted, *args, tiled=tiled)
+
+
 def check_parts(x: dict, tag: str, errs: dict | None = None) -> None:
     """The parts kernel against its plain version on the expanded view of
-    ``x["graph"]`` (f32 and bf16 values), the whole expanded attention
-    against the plain attention, and its Function's gradients."""
+    ``x["graph"]`` (f32 and bf16 values); both forms of the high-degree
+    forward, each forced, against the plain attention, each twice bit for
+    bit, nodes without a valid slot exactly 0; the whole expanded attention
+    (the rule's form) against the plain attention, and its Function's
+    gradients."""
     g = x["graph"]
     xp = g.bsp_expanded
     src_x, mask_x = bsp.expand_ell_view(g.ell_src, g.ell_mask, xp.rows,
@@ -502,6 +529,11 @@ def check_parts(x: dict, tag: str, errs: dict | None = None) -> None:
     q_s, kf = bsp._scaled(x["q"], x["k"])
     q_x = q_s.repeat_interleave(xp.rows, dim=0)
     empty = ~mask_x.any(dim=1)
+    no_edge = ~g.ell_mask.any(dim=1)
+    V = g.max_nodes
+    rule = bsp.tiled_form(V, V, xp.rows * xp.width)
+    log(f"[kernel] {tag}: node view [{V}, {xp.rows * xp.width}]; the rule "
+        f"takes the {'tiled' if rule else 'per-edge'} form of the forward")
     for dt in (torch.float32, torch.bfloat16):
         v = x["v"].to(dt)
         acc, m, l = bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x)
@@ -509,8 +541,8 @@ def check_parts(x: dict, tag: str, errs: dict | None = None) -> None:
         torch.cuda.synchronize()
         name = f"{tag} values {dt}"
         # acc and l sum up to W weights <= 1: f32 error grows with sqrt(W)
-        err = check_kernel_vs_plain(f"bsp_fused_parts acc, {name}", acc,
-                                    want[0], False, scale=xp.width ** 0.5)
+        check_kernel_vs_plain(f"bsp_fused_parts acc, {name}", acc, want[0],
+                              False, scale=xp.width ** 0.5)
         check_kernel_vs_plain(f"bsp_fused_parts m, {name}", m, want[1], False)
         check_kernel_vs_plain(f"bsp_fused_parts l, {name}", l, want[2], False,
                               scale=xp.width ** 0.5)
@@ -518,13 +550,23 @@ def check_parts(x: dict, tag: str, errs: dict | None = None) -> None:
                 and bool((acc[empty] == 0).all())):
             raise AssertionError("expanded rows without a valid slot must "
                                  "give m = -1e30, l = 0 and acc = 0")
+        plain = bsp.bsp_attention_fused_reference(x["q"], x["k"], v, g)
+        for tiled, form in FORMS:
+            args = (q_s, kf, v, src_x, mask_x, xp.rows)
+            got, again = forward_form(tiled, *args), forward_form(tiled, *args)
+            torch.cuda.synchronize()
+            err = check_kernel_vs_plain(
+                f"bsp_fused_parts forward, {form} (rerun bit for bit), {name}",
+                got, plain, dt == torch.bfloat16)
+            if not torch.equal(got, again) or not bool((got[no_edge] == 0).all()):
+                raise AssertionError(f"bsp_fused_parts forward, {form}, {name}: "
+                                     "two runs differ, or a node without a "
+                                     "valid slot is not 0")
+            if errs is not None and dt == torch.float32 and tiled == rule:
+                errs["bsp_fused_parts"] = err
         out = bsp.expanded_attention_fused(x["q"], x["k"], v, g)
-        check_kernel_vs_plain(
-            f"expanded_attention_fused, {name}", out,
-            bsp.bsp_attention_fused_reference(x["q"], x["k"], v, g),
-            dt == torch.bfloat16)
-        if errs is not None and dt == torch.float32:
-            errs["bsp_fused_parts"] = err
+        check_kernel_vs_plain(f"expanded_attention_fused, {name}", out, plain,
+                              dt == torch.bfloat16)
     # With bf16 values, autograd through the plain version would round each
     # slot's value gradient to bf16 and sum up to 192 of them in bf16; the
     # kernels sum in f32 and round once, so the plain side runs on f32 values.
@@ -656,9 +698,11 @@ def check_block(g, D: int, dk: int, seed: int, dev, tag: str,
 
 def phase_block_kernels(dev) -> dict:
     """The block attention at the benchmark's shape, at the block path's
-    (8 scenes of 5, D 8192) and on 2 scenes of 256 nodes with padded nodes
-    (D 1030: the scalar path; several passes of 8 destinations); a scene
-    past 256 nodes raises."""
+    (8 scenes of 5, D 8192), at scenes of 1, 9, 16, 32 and 33 nodes (each
+    bucket of the small-scene kernel and the general one past 32; padded
+    scenes) and on 2 scenes of 256 nodes with padded nodes (D 1030: the
+    scalar path; several passes of 8 destinations); a scene past 256 nodes
+    raises."""
     errs = {}
     g = batch_fully_connected(BENCH_SCENES, BENCH_ROBOTS).to(dev)
     log(f"[kernel] benchmark edge block: V {g.max_nodes}, scene "
@@ -671,6 +715,9 @@ def phase_block_kernels(dev) -> dict:
                                cfg.data.num_robots).to(dev)
     check_block(gb, hw * hw * m.encoder_channels[-1], m.attention_dim, 23,
                 dev, cfg.name)
+    for n in (1, 9, 16, 32, 33):
+        team = batch_fully_connected(3, n, max_nodes=4 * n).to(dev)
+        check_block(team, 1024, 64, 24, dev, f"3 scenes of {n} in {4 * n} slots")
     big = batch_fully_connected(2, 256, max_nodes=768).to(dev)
     check_block(big, 1030, 64, 25, dev, "2 scenes of 256 in 768 slots")
     q = torch.zeros(514, 8, device=dev)
@@ -853,15 +900,6 @@ def phase_bsp2_kernels(dev) -> dict:
     errs["bsp_spmm_t2"] = max(errs["bsp_spmm_t2"],
                               check_spmm_t2(xh, "hideg node view"))
     return {"inputs": x, "hideg": xh, "errs": errs}
-
-
-class _Uncounted:
-    """The launch counter of the forced-form calls below: launches that
-    compare a form with its plain version are not the main path's."""
-    launches = 0
-
-
-FORMS = ((False, "per-edge"), (True, "tiled"))
 
 
 def sddmm_form(tiled: bool, *args):
@@ -1232,9 +1270,10 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def predictor_timings(serve: dict, tag: dict, path: str) -> None:
+def predictor_timings(serve: dict, tag: dict, path: str) -> dict:
     """Device-side batch latency (CUDA events), whole-request latency (host
-    clock) and a profiler breakdown of the Predictor on one eval batch."""
+    clock) and a profiler breakdown of the Predictor on one eval batch;
+    returns the device ms of each port kernel body in that breakdown."""
     batch = serve["batches"][0]
     pred = Predictor(serve["cfg"], serve["model"], graph=batch["graph"])
     runs = [pred.throughput(iters=20) for _ in range(5)]
@@ -1256,8 +1295,8 @@ def predictor_timings(serve: dict, tag: dict, path: str) -> None:
                     "runs_latency_ms": [r["batch_latency_s"] * 1e3 for r in runs],
                     "request_ms_median": statistics.median(req),
                     "request_ms_max": req[-1], "requests": len(req), **tag}))
-    profile_device(lambda: pred(batch["images"]), 5, "predictor_profile",
-                   "requests", {"path": path, **tag})
+    return profile_device(lambda: pred(batch["images"]), 5,
+                          "predictor_profile", "requests", {"path": path, **tag})
 
 
 def time_kernel(name, src_file, replaces, shape, fn, plain, library,
@@ -1295,8 +1334,11 @@ def dense_mask(g) -> torch.Tensor:
 
 
 def phase_new_kernel_timings(nk: dict, tag: dict) -> list:
-    """The parts kernel at the hideg path's shapes and the masked max at the
-    max path's (f32), beside their bounds, plain versions and yardsticks."""
+    """The high-degree forward at the hideg path's shapes in the rule's form
+    and the masked max at the max path's (f32), beside their bounds, plain
+    versions and yardsticks; then both forms of the forward in turns, with
+    the per-edge form's parts kernel and combine apart and the tiled form's
+    kernels by name."""
     x = nk["inputs"]
     g = x["graph"]
     xp = g.bsp_expanded
@@ -1304,28 +1346,51 @@ def phase_new_kernel_timings(nk: dict, tag: dict) -> list:
                                         xp.width)
     q, k, v = x["q"], x["k"], x["v"]
     q_s, kf = bsp._scaled(q, k)
-    q_x = q_s.repeat_interleave(xp.rows, dim=0)
+    V = g.max_nodes
+    src_n, mask_n = src_x.reshape(V, -1), mask_x.reshape(V, -1)
     edges = int(mask_x.sum())
     D, dk = v.shape[1], q.shape[1]
     allowed = dense_mask(g)
-    parts_out = (torch.empty(q_x.shape[0], D, device=v.device),
-                 torch.empty(q_x.shape[0], device=v.device),
-                 torch.empty(q_x.shape[0], device=v.device))
+    args = (q_s, kf, v, src_x, mask_x, xp.rows)
+    form = "tiled" if bsp.tiled_form(V, V, src_n.shape[1]) else "per-edge"
     out = [time_kernel(
         "bsp_fused_parts", "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_parts.cu",
         "mrp_gnn_tpu/ops/pallas_bsp.py:1187",
-        {"V": g.max_nodes, "rows": xp.rows, "width": xp.width, "dk": dk,
-         "D": D, "edges": edges, "dtype": "float32"},
-        lambda: bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x),
-        lambda: bsp.fused_attention_parts_reference(q_x, kf, v, src_x, mask_x),
+        {"V": V, "rows": xp.rows, "width": xp.width, "dk": dk, "D": D,
+         "edges": edges, "dtype": "float32", "form": form,
+         "use": "the hideg forward (bsp.expanded_forward)"},
+        lambda: bsp.expanded_forward(*args),
+        lambda: bsp.expanded_forward_reference(*args),
         lambda: F.scaled_dot_product_attention(
             q[None, None], k[None, None], v[None, None],
             attn_mask=allowed[None, None])[0, 0],
         "F.scaled_dot_product_attention, dense [V, V] mask (the whole "
         "normalised attention)",
-        bound_ms((q_x, kf, v, src_x, mask_x), parts_out,
+        bound_ms((q_s, kf, v, src_n, mask_n), (torch.empty_like(v),),
                  edges * (2 * dk + 1 + 2 * D)),
         nk["errs"]["bsp_fused_parts"], tag)]
+    q_x = q_s.repeat_interleave(xp.rows, dim=0)
+    parts = bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x)
+    turns = {"per-edge": [], "tiled": []}
+    for name in ("per-edge", "tiled", "tiled", "per-edge"):
+        turns[name].append(device_ms(
+            lambda: forward_form(name == "tiled", *args)))
+    kern, _ = profiled(lambda: forward_form(True, *args), 30)
+    log(json.dumps({
+        "metric": "forward_form_ab", "shape": {
+            "V": V, "rows": xp.rows, "width": xp.width, "dk": dk, "D": D,
+            "edges": edges, "tile_pairs": len(bsp.tile_pairs(src_n, mask_n)),
+            "dtype": "float32"},
+        "rule": form, "device_ms": turns,
+        "parts_kernel_ms": device_ms(
+            lambda: bsp.fused_attention_parts(q_x, kf, v, src_x, mask_x)),
+        "xp_combine_ms": device_ms(
+            lambda: bsp.xp_combine(*parts, V, xp.rows, v.dtype)),
+        "tiled_by_kernel_ms": {e.key[:60]: e.self_device_time_total / 30 / 1e3
+                               for e in kern},
+        "timing": "device time per call (profiler); per-edge = the parts "
+                  "kernel, its q repeat and xp_combine; turns per-edge, "
+                  "tiled, tiled, per-edge", **tag}))
     gm, vm = nk["max_graph"], nk["max_values"]
     src, mask = gm.ell_src, gm.ell_mask
     V, deg = src.shape
@@ -1633,11 +1698,11 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
 
 
 def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
-                        inner: int = 20) -> None:
+                        inner: int = 20) -> dict:
     """Device-side train step (one fixed batch on the card, CUDA events),
     kernels and plain ops in turns; peak memory; with ``loop``, one whole
     step through ``train()`` by host clock; a profiler breakdown over 5
-    steps."""
+    steps, whose device ms of each port kernel body it returns."""
     x = tr["inputs"][0]
     path = tr["path"]
     kernels = lambda: tr["step"](tr["state"], *x)  # noqa: E731
@@ -1680,13 +1745,14 @@ def phase_train_timings(tr: dict, tag: dict, loop: bool = True,
                                   "device synchronised by reading the terms, "
                                   "the next batch's render and copy included; "
                                   "step 1 includes first-call costs", **tag}))
-    profile_device(kernels, 5, "train_profile", "steps", {"path": path, **tag})
+    return profile_device(kernels, 5, "train_profile", "steps",
+                          {"path": path, **tag})
 
 
-def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
+def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (:func:`profiled`),
     and the share of the window with no device work (host clock, profiler
-    on)."""
+    on); returns the device ms of each port kernel body."""
     events, wall_us = profiled(fn, n)
     kern = sorted(((e.key, e.self_device_time_total, e.count) for e in events),
                   key=lambda r: -r[1])
@@ -1694,7 +1760,7 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
     ours = {}
     for key, t, _ in kern:
         for body in PORT_KERNEL_BODIES:
-            if f"{body}<" in key or f"{body}(" in key:
+            if f"::{body}<" in key or f"::{body}(" in key:
                 ours[body] = ours.get(body, 0.0) + t / 1e3
     log(json.dumps({"metric": metric, unit: n,
                     "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -1703,6 +1769,26 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> None:
                     "top_kernels": [{"name": k[:90], "ms": t / 1e3,
                                      "share": t / busy, "calls": c}
                                     for k, t, c in kern[:16]], **tag}))
+    return ours
+
+
+# The kernel bodies that a path's profiles must show, and those they must not:
+# the rule's tiled form of the high-degree forward, the block kernel's bucket
+# for the robot teams of the block path.
+PATH_BODIES = {
+    "hideg": (("fused_parts_weights_kernel", "fused_parts_tiled_kernel"),
+              ("fused_parts_kernel",)),
+    "block": (("block_attention_f32_kernel",), ("block_attention_kernel",)),
+}
+
+
+def check_path_bodies(path: str, ours: dict, where: str) -> None:
+    """The path ran the kernel bodies of PATH_BODIES."""
+    run, not_run = PATH_BODIES[path]
+    if not (all(b in ours for b in run) and not any(b in ours for b in not_run)):
+        raise AssertionError(f"the {path} path's {where} ran {sorted(ours)}, "
+                             f"expected {run} and none of {not_run}")
+    log(f"[timing] the {path} path's {where} ran {run}")
 
 
 def main() -> int:
@@ -1769,8 +1855,12 @@ def main() -> int:
         phase_form_timings(fk, tag)
         phase_train_timings(tr["attention"], tag)
         for path in ("hideg", "mean", "max", "block", "ell", "bsp2"):
-            predictor_timings(serve[path], tag, path)
-            phase_train_timings(tr[path], tag, loop=path == "bsp2", inner=10)
+            served = predictor_timings(serve[path], tag, path)
+            trained = phase_train_timings(tr[path], tag, loop=path == "bsp2",
+                                          inner=10)
+            if path in PATH_BODIES:
+                check_path_bodies(path, served, "serving profile")
+                check_path_bodies(path, trained, "train profile")
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",

@@ -16,11 +16,11 @@ replacing the TPU's ``_fused_kernel``), with a backward
   ``spmm_t2`` (``_spmm_t2_kernel``), which gives dvalues and dk from one
   launch.
 
-The SDDMM and the transposed SpMM each have two forms, chosen by
-:func:`tiled_form` from the ELL shape: per-edge (a block per row, or per
-source over a source-major view of the valid slots, :func:`source_view`)
-and tiled (dense blocks per pair of node tiles that holds a valid slot,
-:func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
+The SDDMM, the transposed SpMM and the high-degree forward each have two
+forms, chosen by :func:`tiled_form` from the ELL shape: per-edge (a block
+per row, or per source over a source-major view of the valid slots,
+:func:`source_view`) and tiled (dense blocks per pair of node tiles that
+holds a valid slot, :func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
 
 ``bsp_attention`` is the JAX package's two-kernel form: ``attention_weights``
 (``csrc/bsp_weights.cu``; ``_weights_kernel``) emits alpha, with the
@@ -30,9 +30,11 @@ SpMM with the JAX ``_bsp_spmm`` gradient
 (:class:`WeightedAggregate`). ELL widths past 128 run over the row-expanded
 view of the neighbour lists (``graph.BspExpandedPlan``, at most 128 slots
 per expanded row): ``expanded_attention_fused`` through
-``fused_attention_parts`` (``csrc/bsp_fused_parts.cu``, replacing the TPU's
-``_fused_parts_kernel``) and :func:`xp_combine`, whose backward runs the
-same three kernels on the node view of the expanded lists;
+:func:`expanded_forward` (``csrc/bsp_fused_parts.cu``, replacing the TPU's
+``_fused_parts_kernel``: per-edge, ``fused_attention_parts`` and
+:func:`xp_combine`, or tiled on the node view of the expanded lists, by
+:func:`tiled_form`), whose backward runs the same three kernels on that
+node view;
 ``expanded_mean`` through the SpMM. The CUDA kernels gather rows straight
 from ``ell_src``; the tile-pair plans only mark the batches they serve
 (``supports``, ``supports_expanded``), as in the JAX package.
@@ -60,10 +62,11 @@ from mrp_gnn_tpu_torch.ops import reference as R
 _NEG = -1e30
 MAX_DEGREE = 128  # the fused kernels keep a row's slots in shared memory
 MAX_DK = 256      # the fused kernels keep a row's query in shared memory
-# The form rule of bsp_sddmm.cu and bsp_spmm_t.cu (:func:`tiled_form`): node
-# tiles of TILE (csrc/bsp_common.cuh kTile), the tiled form from an ELL
-# width of TILED_MIN_DEG, while the tiled transposed SpMM's dense [V, Vs]
-# weights stay within TILED_MAX_DENSE elements (64 MB in f32).
+# The form rule of bsp_sddmm.cu, bsp_spmm_t.cu and bsp_fused_parts.cu
+# (:func:`tiled_form`): node tiles of TILE (csrc/bsp_common.cuh kTile), the
+# tiled form from an ELL width of TILED_MIN_DEG, while the dense [V, Vs]
+# weights of the tiled transposed SpMM and forward stay within
+# TILED_MAX_DENSE elements (64 MB in f32).
 TILE = 64
 TILED_MIN_DEG = 64
 TILED_MAX_DENSE = 1 << 24
@@ -214,13 +217,14 @@ def source_view(ell_src: torch.Tensor, ell_mask: torch.Tensor,
 
 
 def tiled_form(V: int, Vs: int, deg: int) -> bool:
-    """The form rule of the SDDMM and transposed SpMM kernels, on the ELL
-    shape alone (no host sync, and the same form for the single and the dual
-    launch): the tiled form, dense blocks per (destination tile, source
-    tile) pair, from an ELL width of TILED_MIN_DEG and while a dense [V, Vs]
-    weight matrix fits TILED_MAX_DENSE elements; the per-edge form below it,
-    where a 64 x 64 block would be mostly empty. PERF.md section 6 gives the
-    crossover measured on the card."""
+    """The form rule of the SDDMM, transposed SpMM and high-degree forward
+    kernels, on the ELL shape alone (no host sync, and the same form for the
+    single and the dual launch): the tiled form, dense blocks per
+    (destination tile, source tile) pair, from an ELL width of
+    TILED_MIN_DEG and while a dense [V, Vs] weight matrix fits
+    TILED_MAX_DENSE elements; the per-edge form below it, where a 64 x 64
+    block would be mostly empty. PERF.md section 6 gives the crossover
+    measured on the card."""
     return deg >= TILED_MIN_DEG and V * Vs <= TILED_MAX_DENSE
 
 
@@ -278,14 +282,15 @@ def _check_cuda(kernel: str, ell_src, ell_mask,
 
 
 def _check_cuda_inputs(q, k, values, ell_src, ell_mask,
-                       kernel: str = _KERNEL) -> None:
+                       kernel: str = _KERNEL,
+                       max_deg: int | None = MAX_DEGREE) -> None:
     """Checks of the fused kernels: q [V, dk] with one row per ELL row; k
     [Vs, dk] and values [Vs, D] with one row per source (Vs = V for the
     square kernel, which takes q_s and k of one shape)."""
     if values.device.type != "cuda":
         what = "fused attention" if kernel == _KERNEL else kernel
         raise RuntimeError(f"no {what} kernel for {values.device}")
-    _check_cuda(kernel, ell_src, ell_mask, q=q, k=k, values=values)
+    _check_cuda(kernel, ell_src, ell_mask, max_deg, q=q, k=k, values=values)
     if q.dtype != torch.float32 or k.dtype != torch.float32:
         raise TypeError("q and k must be float32")
     if values.dtype not in _VALUE_TYPES:
@@ -367,29 +372,118 @@ def fused_attention_parts(q_x: torch.Tensor, k: torch.Tensor,
                           values: torch.Tensor, src_x: torch.Tensor,
                           mask_x: torch.Tensor) -> tuple:
     """Kernel wrapper, same contract as
-    :func:`fused_attention_parts_reference`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    :func:`fused_attention_parts_reference` (the per-edge form of
+    ``csrc/bsp_fused_parts.cu``). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise. Its count also holds the launches of
+    the tiled form (:func:`expanded_forward`)."""
     if values.device.type == "cpu":
         return fused_attention_parts_reference(q_x, k, values, src_x, mask_x)
+    return _run_parts(fused_attention_parts, q_x, k, values, src_x, mask_x)
+
+
+fused_attention_parts.launches = 0
+
+
+def _run_parts(counter, q_x, k, values, src_x, mask_x) -> tuple:
+    """Check CUDA inputs and launch the per-edge form of
+    ``bsp_fused_parts.cu``, counting the launch in ``counter.launches``."""
     _check_cuda_inputs(q_x, k, values, src_x, mask_x, "bsp_fused_parts")
     rows, deg = src_x.shape
     acc = torch.empty(rows, values.shape[1], dtype=torch.float32,
                       device=values.device)
     m = torch.empty(rows, dtype=torch.float32, device=values.device)
     l = torch.empty_like(m)
-    _build.run("bsp_fused_parts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-               q_x.data_ptr(), k.data_ptr(), values.data_ptr(),
-               src_x.data_ptr(), mask_x.data_ptr(), acc.data_ptr(),
-               m.data_ptr(), l.data_ptr(), rows, deg, q_x.shape[1],
-               values.shape[1], int(values.dtype == torch.bfloat16),
-               _fused_vec(values, acc), values.device.index,
-               _build.stream(values))
-    fused_attention_parts.launches += 1
+    _launch_parts(q_x, k, values, src_x, mask_x, acc, m, l,
+                  _fused_vec(values, acc), 0, None)
+    counter.launches += 1
     return acc, m, l
 
 
-fused_attention_parts.launches = 0
+def _launch_parts(q, k, values, ell_src, ell_mask, out, m, l, vec: int,
+                  tiled: int, scratch) -> None:
+    rows, deg = ell_src.shape
+    _build.run("bsp_fused_parts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+               + [ctypes.c_longlong] + [ctypes.c_int] * 4
+               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+               q.data_ptr(), k.data_ptr(), values.data_ptr(),
+               ell_src.data_ptr(), ell_mask.data_ptr(), out.data_ptr(),
+               m.data_ptr() if m is not None else None,
+               l.data_ptr() if l is not None else None, rows, deg,
+               q.shape[1], values.shape[1],
+               int(values.dtype == torch.bfloat16), vec, tiled,
+               values.shape[0], scratch.data_ptr() if tiled else None,
+               values.device.index, _build.stream(values))
+
+
+def expanded_forward_reference(q_s: torch.Tensor, k: torch.Tensor,
+                               values: torch.Tensor, src_x: torch.Tensor,
+                               mask_x: torch.Tensor, rows: int,
+                               tiled: bool | None = None) -> torch.Tensor:
+    """Plain torch version of :func:`expanded_forward` in the form given
+    (None: the form :func:`tiled_form` gives): the tiled form is
+    :func:`fused_attention_reference` on the node view [V, R * W] of the
+    expanded lists; the per-edge form the parts' plain version on the
+    expanded view, then :func:`xp_combine`."""
+    V = q_s.shape[0]
+    src_n, mask_n = src_x.reshape(V, -1), mask_x.reshape(V, -1)
+    if tiled is None:
+        tiled = tiled_form(V, k.shape[0], src_n.shape[1])
+    if tiled:
+        return fused_attention_reference(q_s, k, values, src_n, mask_n)
+    acc, m, l = fused_attention_parts_reference(
+        q_s.repeat_interleave(rows, dim=0), k, values, src_x, mask_x)
+    return xp_combine(acc, m, l, V, rows, values.dtype)
+
+
+def expanded_forward(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
+                     src_x: torch.Tensor, mask_x: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """The forward of :class:`ExpandedFusedAttention`: out [V, D] in the
+    values dtype, the attention of each node over its R * W slots of the
+    row-expanded view ``src_x`` / ``mask_x`` [V * R, W]. q_s f32 [V, dk],
+    already scaled by 1/sqrt(dk); k f32 [Vs, dk]; values [Vs, D].
+
+    Two forms of ``csrc/bsp_fused_parts.cu``, chosen by :func:`tiled_form`
+    on the node view [V, R * W]: per-edge (the parts kernel on the expanded
+    rows, then :func:`xp_combine`) and tiled (a weights kernel writes each
+    node's softmax into dense 64 x 64 tiles, a tile loop sums the value
+    rows). CPU tensors take the plain version of that form
+    (:func:`expanded_forward_reference`); CUDA tensors launch the kernel or
+    raise, counted in ``fused_attention_parts.launches``."""
+    if values.device.type == "cpu":
+        return expanded_forward_reference(q_s, k, values, src_x, mask_x, rows)
+    return run_expanded_forward(fused_attention_parts, q_s, k, values, src_x,
+                                mask_x, rows)
+
+
+def run_expanded_forward(counter, q_s, k, values, src_x, mask_x, rows: int,
+                         tiled: bool | None = None) -> torch.Tensor:
+    """Check CUDA inputs and launch ``bsp_fused_parts.cu`` for
+    :func:`expanded_forward`, counting the launch in ``counter.launches``.
+    ``tiled`` None takes the form :func:`tiled_form` gives; True or False
+    forces one (the card's tests of both forms)."""
+    V = q_s.shape[0]
+    src_n, mask_n = src_x.reshape(V, -1), mask_x.reshape(V, -1)
+    if tiled is None:
+        tiled = tiled_form(V, k.shape[0], src_n.shape[1])
+    if not tiled:
+        acc, m, l = _run_parts(counter, q_s.repeat_interleave(rows, dim=0), k,
+                               values, src_x, mask_x)
+        return xp_combine(acc, m, l, V, rows, values.dtype)
+    _check_cuda_inputs(q_s, k, values, src_n, mask_n, "bsp_fused_parts",
+                       max_deg=None)
+    deg = src_n.shape[1]
+    if V * deg >= 2 ** 31 or deg == 0:
+        raise ValueError(f"the tiled form takes 0 < V * deg < 2^31, got "
+                         f"{V} x {deg}")
+    out = torch.empty(V, values.shape[1], dtype=values.dtype,
+                      device=values.device)
+    scratch = torch.empty(_scratch("bsp_fused_parts", V, k.shape[0], deg),
+                          dtype=torch.uint8, device=values.device)
+    _launch_parts(q_s, k, values, src_n, mask_n, out, None, None,
+                  8 if _vec8(values, out) else 1, 1, scratch)
+    counter.launches += 1
+    return out
 
 
 def attention_weights(q_s: torch.Tensor, k: torch.Tensor,
@@ -783,16 +877,14 @@ def xp_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, V: int,
 
 
 class ExpandedFusedAttention(torch.autograd.Function):
-    """One-pass attention over the row-expanded view: the kernel's raw
-    parts, then :func:`xp_combine`; the counterpart of the JAX package's
+    """One-pass attention over the row-expanded view
+    (:func:`expanded_forward`); the counterpart of the JAX package's
     ``_xp_fused`` custom vjp, whose backward recomputes the logits."""
 
     @staticmethod
     def forward(ctx, q_s, k, values, src_x, mask_x, rows):
         ctx.save_for_backward(q_s, k, values, src_x, mask_x)
-        acc, m, l = fused_attention_parts(q_s.repeat_interleave(rows, dim=0),
-                                          k, values, src_x, mask_x)
-        return xp_combine(acc, m, l, q_s.shape[0], rows, values.dtype)
+        return expanded_forward(q_s, k, values, src_x, mask_x, rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -974,9 +1066,8 @@ def expanded_attention(q: torch.Tensor, k: torch.Tensor,
 def expanded_attention_fused(q: torch.Tensor, k: torch.Tensor,
                              values: torch.Tensor, graph) -> torch.Tensor:
     """One-pass edge attention for ELL widths past 128 (the dispatch path):
-    :func:`fused_attention_parts` over the expanded view and
-    :func:`xp_combine`, with a gradient for q, k and values. Same semantics
-    as :func:`bsp_attention_fused`."""
+    :func:`expanded_forward` over the expanded view, with a gradient for q,
+    k and values. Same semantics as :func:`bsp_attention_fused`."""
     src_x, mask_x, rows, _ = _expand_graph(graph)
     q_s, kf = _scaled(q, k)
     return ExpandedFusedAttention.apply(q_s, kf, values.contiguous(), src_x,

@@ -29,14 +29,35 @@
 // f32 rate). At multitask_batched (8 scenes of 5, D 8192, f32) 2.6 MB, so
 // the launch sets the time.
 //
-// Design: one block per (scene, chunk of the feature axis). For kRows
-// destinations at a time, the warps compute the [kRows, n] logits (one warp
-// per (destination, source) dot), one warp per destination takes the masked
-// softmax into shared memory, and each thread then streams its VEC
-// features of the scene's n value rows with 16-byte loads, accumulating
-// kRows outputs in f32 registers. For n <= kRows (the robot teams of the
-// presets and of the benchmark) every value row is read once; a larger
-// scene re-reads its rows once per kRows destinations, from L1 and L2.
+// Design. A kernel that reaches the byte bound must keep enough loads in
+// flight: about 3.35 TB/s times the ~1 us latency of a load, some 25 KB per
+// SM. The kernels are chosen by the scene size n at launch:
+//
+// block_attention_f32_kernel and block_attention_bf16_kernel (n <= 32,
+// 16-byte rows: the robot teams of the presets and of the benchmark), one
+// body (small_scenes). One block per (scene, 16 bytes of each of its rows
+// per thread: 256 threads for bf16 values, 128 for f32); a template
+// bucket NB = 8, 16 or 32 >= n sizes the shared memory. At block
+// start every thread issues the cp.async copies of its 16 bytes of all n
+// value rows into shared memory (n loads in flight per thread), and only
+// then computes the [n, n] logits (one thread per (destination, source)
+// pair, a chain of FMAs over dk with 16-byte loads of the q and k rows
+// where they allow), so the value loads overlap the logits and the softmax
+// (one thread per destination, into shared memory). It then accumulates the
+// outputs in f32 registers, 32 of them for any n (8 destinations a pass for
+// f32 values, 4 for bf16), from the staged rows and stores each output row
+// once. 64 registers a thread keep 1,024 threads on each SM, whose loads
+// are in flight together.
+//
+// block_attention_kernel (the general case: n up to 256, or rows not
+// 16-byte aligned). One block per (scene, chunk of the feature axis). For
+// kRows destinations at a time, the warps compute the [kRows, n] logits
+// (one warp per (destination, source) dot), one warp per destination takes
+// the masked softmax into shared memory, and each thread then streams its
+// VEC features of the scene's n value rows, accumulating kRows outputs in
+// f32 registers; a larger scene re-reads its rows once per kRows
+// destinations, from L1 and L2.
+//
 // Each feature chunk recomputes its scene's logits (n^2 dk FMAs) rather
 // than share them through a second pass.
 
@@ -154,6 +175,240 @@ block_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
+// --- scenes of up to 32 nodes ----------------------------------------------
+
+constexpr int kAccFloats = 32;  // the accumulator, for any n and type
+
+// A 16-byte cp.async from global to shared memory; !full copies nothing and
+// fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
+// 16 bytes of T staged in shared memory, as f32.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& v, float* x);
+
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& v, float* x) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
+}
+
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& v,
+                                                        float* x) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// <q[qi .. qi + dk), k[ki .. ki + dk)> in f32, one chain over d in order;
+// vec: 16-byte loads (the rows 16-byte aligned, dk a multiple of 16 bytes).
+template <typename TQ>
+__device__ __forceinline__ float dot_qk(const TQ* __restrict__ q,
+                                        const TQ* __restrict__ k,
+                                        long long qi, long long ki, int dk,
+                                        bool vec) {
+  constexpr int kPer = 16 / sizeof(TQ);
+  float acc = 0.f;
+  if (vec) {
+    for (int d = 0; d < dk; d += kPer) {
+      float a[kPer], b[kPer];
+      VecIO<TQ, kPer>::load(q + qi + d, a);
+      VecIO<TQ, kPer>::load(k + ki + d, b);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc = fmaf(a[i], b[i], acc);
+    }
+  } else {
+    for (int d = 0; d < dk; ++d) {
+      float a, b;
+      VecIO<TQ, 1>::load(q + qi + d, &a);
+      VecIO<TQ, 1>::load(k + ki + d, &b);
+      acc = fmaf(a, b, acc);
+    }
+  }
+  return acc;
+}
+
+// The body of the small-scene kernels: grid (S, feature chunks of kThreads
+// x 16 bytes), block kThreads, NB * kThreads * 16 bytes of dynamic shared
+// memory; n <= NB, D a multiple of 16 bytes, values and out 16-byte
+// aligned.
+template <typename T, int NB, int kThreads>
+__device__ __forceinline__ void small_scenes(
+    const void* __restrict__ q, const void* __restrict__ k, int qk_bf16,
+    int qk_vec, const T* __restrict__ values,
+    const uint8_t* __restrict__ valid, const float* __restrict__ scene_adj,
+    T* __restrict__ out, int n, int dk, long long D) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int kGroup = kAccFloats / VEC;  // destinations per pass: 8 or 4
+  extern __shared__ __align__(16) uint4 rows_sh[];  // [NB][kThreads]
+  __shared__ float alpha_sh[NB][NB + 1];
+
+  const long long base = static_cast<long long>(blockIdx.x) * n;
+  const int tid = threadIdx.x;
+  const long long f0 =
+      (static_cast<long long>(blockIdx.y) * kThreads + tid) * VEC;
+  const bool active = f0 < D;
+
+  // Every value load of the block in flight before the logits start.
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const bool full = active && j < n;
+    cp_async16(rows_sh + j * kThreads + tid,
+               full ? values + (base + j) * D + f0 : values, full);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // Logits with the scene and source masks, one thread per pair.
+  for (int p = tid; p < n * n; p += kThreads) {
+    const int i = p / n;
+    const int j = p - i * n;
+    const long long qi = (base + i) * dk;
+    const long long ki = (base + j) * dk;
+    const float dot =
+        qk_bf16 ? dot_qk(static_cast<const __nv_bfloat16*>(q),
+                         static_cast<const __nv_bfloat16*>(k), qi, ki, dk,
+                         qk_vec)
+                : dot_qk(static_cast<const float*>(q),
+                         static_cast<const float*>(k), qi, ki, dk, qk_vec);
+    const float x = dot + (scene_adj[i * n + j] > 0.f ? 0.f : kNeg);
+    alpha_sh[i][j] = valid[base + j] ? x : kNeg;
+  }
+  __syncthreads();
+
+  // Masked softmax, one thread per destination.
+  if (tid < n) {
+    float* a = alpha_sh[tid];
+    float m = kNeg;  // below the floor kNeg / 2, so it never changes mg
+    for (int j = 0; j < n; ++j) m = fmaxf(m, a[j]);
+    const float mg = fmaxf(m, kNeg / 2);
+    float l = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float e = expf(a[j] - mg);
+      a[j] = e;
+      l += e;
+    }
+    const float den = fmaxf(l, 1e-30f);
+    for (int j = 0; j < n; ++j) a[j] = round_to<T>(l > 1e-20f ? a[j] / den : 0.f);
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  // out[i0 + r] = sum_j alpha[i0 + r, j] * values[j], kGroup destinations
+  // a pass, from the staged rows. Rows past n hold stale weights and are
+  // not stored.
+  if (!active) return;
+  for (int i0 = 0; i0 < n; i0 += kGroup) {
+    float acc[kGroup][VEC];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j >= n) break;
+      float x[VEC];
+      unpack16<T>(rows_sh[j * kThreads + tid], x);
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) {
+        const float a = alpha_sh[i0 + r][j];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(a, x[e], acc[r][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+      if (i0 + r < n) VecIO<T, VEC>::store(out + (base + i0 + r) * D + f0, acc[r]);
+  }
+}
+
+// The small-scene kernels, one per values' type, each with the launch
+// bounds that ran fastest for it on an H100 at the benchmark's shape in
+// exploratory calls. f32: 128 threads, no register cap: ptxas takes 64
+// registers and spills nothing, where naming a block count in
+// __launch_bounds__, even 1, gave 101 registers, and a cap of 64 spills;
+// both ran slower. bf16: 256 threads held to 64 registers, 4 blocks per
+// SM, where it takes 112 unheld and runs slower.
+template <int NB>
+__global__ void __launch_bounds__(128)
+block_attention_f32_kernel(const void* __restrict__ q,
+                           const void* __restrict__ k, int qk_bf16,
+                           int qk_vec, const float* __restrict__ values,
+                           const uint8_t* __restrict__ valid,
+                           const float* __restrict__ scene_adj,
+                           float* __restrict__ out, int n, int dk,
+                           long long D) {
+  small_scenes<float, NB, 128>(q, k, qk_bf16, qk_vec, values, valid,
+                               scene_adj, out, n, dk, D);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(256, 4)
+block_attention_bf16_kernel(const void* __restrict__ q,
+                            const void* __restrict__ k, int qk_bf16,
+                            int qk_vec, const __nv_bfloat16* __restrict__ values,
+                            const uint8_t* __restrict__ valid,
+                            const float* __restrict__ scene_adj,
+                            __nv_bfloat16* __restrict__ out, int n, int dk,
+                            long long D) {
+  small_scenes<__nv_bfloat16, NB, 256>(q, k, qk_bf16, qk_vec, values, valid,
+                                       scene_adj, out, n, dk, D);
+}
+
+template <typename T>
+using SmallKernel = void (*)(const void*, const void*, int, int, const T*,
+                             const uint8_t*, const float*, T*, int, int,
+                             long long);
+
+template <typename T, int NB, int kThreads>
+cudaError_t launch_small(SmallKernel<T> kernel, const void* q,
+                         const void* k, int qk_bf16, int qk_vec,
+                         const void* values, const uint8_t* valid,
+                         const float* scene_adj, void* out, int S, int n,
+                         int dk, long long D, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int kSmem = NB * kThreads * 16;
+  const long long per_block = static_cast<long long>(kThreads) * VEC;
+  const long long chunks = (D + per_block - 1) / per_block;
+  if (chunks > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(S), static_cast<unsigned>(chunks));
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      q, k, qk_bf16, qk_vec, static_cast<const T*>(values), valid, scene_adj,
+      static_cast<T*>(out), n, dk, D);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_bucket(int values_bf16, const void* q, const void* k,
+                          int qk_bf16, int qk_vec, const void* values,
+                          const uint8_t* valid, const float* scene_adj,
+                          void* out, int S, int n, int dk, long long D,
+                          cudaStream_t s) {
+  if (values_bf16)
+    return launch_small<__nv_bfloat16, NB, 256>(
+        block_attention_bf16_kernel<NB>, q, k, qk_bf16, qk_vec, values, valid,
+        scene_adj, out, S, n, dk, D, s);
+  return launch_small<float, NB, 128>(
+      block_attention_f32_kernel<NB>, q, k, qk_bf16, qk_vec, values, valid,
+      scene_adj, out, S, n, dk, D, s);
+}
+
+// --- the general case ---------------------------------------------------------
+
 template <typename T, int VEC>
 cudaError_t launch(const void* q, const void* k, int qk_bf16,
                    const void* values, const uint8_t* valid,
@@ -175,8 +430,9 @@ cudaError_t launch(const void* q, const void* k, int qk_bf16,
 // q, k: [S * n, dk], f32 (qk_bf16 0) or bf16 (1); values and out [S * n, D],
 // f32 (values_bf16 0) or bf16 (1); valid: bool [S * n]; scene_adj: f32
 // [n, n], adj[dst, src]. 1 <= n <= 256. vec: 8 needs D a multiple of 8 and
-// 16-byte aligned values and out; 1 takes any D. Returns the CUDA error
-// code of the launch (0 on success).
+// 16-byte aligned values and out; 1 takes any D. vec 8 and n <= 32 take
+// the small-scene kernels, the rest the general kernel. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int block_attention(const void* q, const void* k, int qk_bf16,
                                const void* values, const uint8_t* valid,
                                const float* scene_adj, void* out, int S,
@@ -187,6 +443,19 @@ extern "C" int block_attention(const void* q, const void* k, int qk_bf16,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 8 && n <= 32) {
+    const int esize = qk_bf16 ? 2 : 4;
+    const int qk_vec = (static_cast<long long>(dk) * esize) % 16 == 0
+                       && reinterpret_cast<uintptr_t>(q) % 16 == 0
+                       && reinterpret_cast<uintptr_t>(k) % 16 == 0;
+    if (n <= 8)
+      err = launch_bucket<8>(values_bf16, q, k, qk_bf16, qk_vec, values, valid, scene_adj, out, S, n, dk, D, s);
+    else if (n <= 16)
+      err = launch_bucket<16>(values_bf16, q, k, qk_bf16, qk_vec, values, valid, scene_adj, out, S, n, dk, D, s);
+    else
+      err = launch_bucket<32>(values_bf16, q, k, qk_bf16, qk_vec, values, valid, scene_adj, out, S, n, dk, D, s);
+    return static_cast<int>(err);
+  }
   if (values_bf16) {
     if (vec == 8) err = launch<__nv_bfloat16, 8>(q, k, qk_bf16, values, valid, scene_adj, out, S, n, dk, D, s);
     else if (vec == 1) err = launch<__nv_bfloat16, 1>(q, k, qk_bf16, values, valid, scene_adj, out, S, n, dk, D, s);

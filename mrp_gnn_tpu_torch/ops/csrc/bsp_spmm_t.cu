@@ -69,21 +69,23 @@
 //    multiplied; bf16 or unaligned x rows go through registers) and
 //    accumulates an 8 x 8 register tile per thread (128 threads; four
 //    16-byte shared-memory reads per 64 FMAs) with f32 FMAs, v ascending,
-//    then writes its outputs once. Two blocks per SM.
+//    then writes its outputs once. Two blocks per SM. The loop lives in
+//    bsp_tiled.cuh, which bsp_fused_parts.cu's tiled forward shares.
 // Each output element is then one chain over the destination nodes in
 // order, with a node's duplicate slots pre-summed. As with the TPU kernel's
 // dense product per tile pair, a non-finite x element spreads to its tile's
 // outputs through a zero weight; the training step's operands are finite.
 
-#include "bsp_common.cuh"
+#include "bsp_tiled.cuh"
 
 namespace {
 
+using bsp::kOutBf16;
+using bsp::kVec8;
+using bsp::kXBf16;
+using bsp::load_row;
+using bsp::store_row;
 using bsp::VecIO;
-
-constexpr int kXBf16 = 1;    // flags of one operand pair
-constexpr int kOutBf16 = 2;
-constexpr int kVec8 = 4;     // 16-byte loads: D % 8 == 0, aligned rows
 
 // grid (Vs, feature chunks), block a multiple of 32 up to kMaxThreads.
 template <typename TX, typename TO, int VEC>
@@ -112,20 +114,6 @@ spmm_t_kernel(const float* __restrict__ w, const TX* __restrict__ x,
     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a, xv[i], acc[i]);
   }
   VecIO<TO, VEC>::store(out + s * D + f0, acc);
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const void* p, bool bf16,
-                                         long long i, float* x) {
-  if (bf16) VecIO<__nv_bfloat16, VEC>::load(static_cast<const __nv_bfloat16*>(p) + i, x);
-  else VecIO<float, VEC>::load(static_cast<const float*>(p) + i, x);
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_row(void* p, bool bf16, long long i,
-                                          const float* x) {
-  if (bf16) VecIO<__nv_bfloat16, VEC>::store(static_cast<__nv_bfloat16*>(p) + i, x);
-  else VecIO<float, VEC>::store(static_cast<float*>(p) + i, x);
 }
 
 // The dual form: grid (Vs, feature chunks of the wider operand), block a
@@ -246,18 +234,8 @@ cudaError_t launch_dual(const float* w1, const void* x1, void* out1,
 
 // --- the tiled form ---------------------------------------------------------
 
-constexpr int kT = bsp::kTile;   // nodes per tile
-constexpr int kF = 128;          // features per block
-constexpr int kThreads = 128;    // 8 x 16 threads, 8 sources x 8 features each
-
-struct Pair {
-  const float* w;   // [V, deg]
-  const void* x;    // [V, D]
-  void* out;        // [Vs, D]
-  long long D;
-  int flags;
-  float* W;         // the dense [nt * kT, nts * kT] weights, in scratch
-};
+constexpr int kT = bsp::kTile;  // nodes per tile
+using Pair = bsp::TiledPair;
 
 // grid V, block a multiple of 32: row v of W1 (and W2), and the flags of
 // the tile pairs its valid slots join. The row of W1 first counts the slots
@@ -311,174 +289,16 @@ densify_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
   }
 }
 
-constexpr int kWTile = kT * kT;             // floats of a W tile, Ws[v][s]
-constexpr int kXTile = kT * kF;             // floats of an x tile, Xs[v][f]
-constexpr int kStage = kWTile + kXTile;     // one buffer
-constexpr int kSmemBytes = 2 * kStage * 4;  // two buffers: 96 KB
-
-// A 16-byte cp.async from global to shared memory; !full copies nothing and
-// fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(full ? 16 : 0));
-}
-
-// x[v0 + i, f0 + f] for i < nv and f0 + f < D (0 elsewhere) -> Xs[i][f],
-// through registers (bf16 rows are widened on the way; rows that are not
-// 16-byte aligned take VEC 1): every load is issued before the first store.
-template <typename TX, int VEC>
-__device__ __forceinline__ void stage_x(const TX* __restrict__ x, long long D,
-                                        long long v0, int nv, long long f0,
-                                        float* __restrict__ Xs) {
-  constexpr int kGroups = kF / VEC;
-  constexpr int kPer = kT * kGroups / kThreads;
-  constexpr int kBatch = 16 / VEC;  // 16 floats in flight per thread
-  for (int q0 = 0; q0 < kPer; q0 += kBatch) {
-    float r[kBatch][VEC];
-#pragma unroll
-    for (int q = 0; q < kBatch; ++q) {
-      const int idx = threadIdx.x + (q0 + q) * kThreads;
-      const int i = idx / kGroups;
-      const int f = (idx % kGroups) * VEC;
-      if (i < nv && f0 + f < D) {
-        VecIO<TX, VEC>::load(x + (v0 + i) * D + f0 + f, r[q]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) r[q][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kBatch; ++q) {
-      const int idx = threadIdx.x + (q0 + q) * kThreads;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        Xs[(idx / kGroups) * kF + (idx % kGroups) * VEC + e] = r[q][e];
-    }
-  }
-}
-
-// Starts the copies of destination tile dt's W tile and x tile into buffer
-// buf (one cp.async group; the register path's stores are done on return).
-__device__ __forceinline__ void stage_pair(const Pair& p, int dt, int V,
-                                           long long s0, long long VsP,
-                                           long long f0, float* buf) {
-  const long long v0 = static_cast<long long>(dt) * kT;
-  const int nv = min(kT, V - static_cast<int>(v0));
-  float* Ws = buf;
-  float* Xs = buf + kWTile;
-#pragma unroll
-  for (int q = 0; q < kWTile / 4 / kThreads; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
-    const int i = idx / (kT / 4);
-    const int j = (idx % (kT / 4)) * 4;
-    const bool full = i < nv;
-    cp_async16(Ws + i * kT + j, full ? p.W + (v0 + i) * VsP + s0 + j : p.W,
-               full);
-  }
-  const bool xbf = p.flags & kXBf16;
-  const bool vec = p.flags & kVec8;
-  if (!xbf && vec) {
-    const float* x = static_cast<const float*>(p.x);
-#pragma unroll
-    for (int q = 0; q < kXTile / 4 / kThreads; ++q) {
-      const int idx = threadIdx.x + q * kThreads;
-      const int i = idx / (kF / 4);
-      const int f = (idx % (kF / 4)) * 4;
-      const bool full = i < nv && f0 + f < p.D;
-      cp_async16(Xs + i * kF + f, full ? x + (v0 + i) * p.D + f0 + f : x,
-                 full);
-    }
-  } else if (xbf) {
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-    if (vec) stage_x<__nv_bfloat16, 8>(x, p.D, v0, nv, f0, Xs);
-    else stage_x<__nv_bfloat16, 1>(x, p.D, v0, nv, f0, Xs);
-  } else {
-    stage_x<float, 1>(static_cast<const float*>(p.x), p.D, v0, nv, f0, Xs);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// The first destination tile from dt on whose pair with source tile st
-// holds a valid slot, or nt.
-__device__ __forceinline__ int next_tile(const uint8_t* __restrict__ flags,
-                                         int dt, int nt, int nts, int st) {
-  while (dt < nt && !flags[static_cast<long long>(dt) * nts + st]) ++dt;
-  return dt;
-}
-
-// grid (c1 + c2 feature chunks, nts source tiles), block kThreads, kSmemBytes
-// of dynamic shared memory: block (chunk, st) writes out[s0 .. s0 + 63,
-// chunk's features] of pair p1 (chunk < c1) or p2. The next pair's tiles
-// are copied in while the current pair's are multiplied.
-__global__ void __launch_bounds__(kThreads, 2)
+// grid (c1 + c2 feature chunks of both outputs, nts source tiles), block
+// bsp::kTileThreads, bsp::kTileSmemBytes of dynamic shared memory: W[v, s]
+// from densify_kernel, x[v] and out[s] of each pair (bsp_tiled.cuh). Two
+// blocks per SM.
+__global__ void __launch_bounds__(bsp::kTileThreads, 2)
 spmm_t_tiled_kernel(Pair p1, Pair p2, int c1,
                     const uint8_t* __restrict__ flags, int V, int Vs, int nt,
                     int nts) {
-  extern __shared__ __align__(16) float smem[];
-  const int st = blockIdx.y;
-  const int ch = blockIdx.x;
-  const Pair p = ch < c1 ? p1 : p2;
-  const long long f0 = static_cast<long long>(ch < c1 ? ch : ch - c1) * kF;
-  const long long s0 = static_cast<long long>(st) * kT;
-  const long long VsP = static_cast<long long>(nts) * kT;
-  const int tx = threadIdx.x & 15;  // features tx * 4 + 64 h + c
-  const int ty = threadIdx.x >> 4;  // sources ty * 8 + r
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  int cur = next_tile(flags, 0, nt, nts, st);
-  int buf = 0;
-  if (cur < nt) stage_pair(p, cur, V, s0, VsP, f0, smem);
-  while (cur < nt) {
-    const int nxt = next_tile(flags, cur + 1, nt, nts, st);
-    if (nxt < nt) {  // the other buffer was last read before the last barrier
-      stage_pair(p, nxt, V, s0, VsP, f0, smem + (buf ^ 1) * kStage);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const float* Ws = smem + buf * kStage;
-    const float* Xs = Ws + kWTile;
-    const int nv = min(kT, V - cur * kT);
-#pragma unroll 4
-    for (int v = 0; v < nv; ++v) {
-      const float4 w0 = *reinterpret_cast<const float4*>(Ws + v * kT + ty * 8);
-      const float4 w1 = *reinterpret_cast<const float4*>(Ws + v * kT + ty * 8 + 4);
-      const float4 x0 = *reinterpret_cast<const float4*>(Xs + v * kF + tx * 4);
-      const float4 x1 = *reinterpret_cast<const float4*>(Xs + v * kF + 64 + tx * 4);
-      const float a[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], xv[c], acc[r][c]);
-    }
-    __syncthreads();  // this buffer is refilled two pairs on
-    buf ^= 1;
-    cur = nxt;
-  }
-
-  const bool obf = p.flags & kOutBf16;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const long long s = s0 + ty * 8 + r;
-    if (s >= Vs) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const long long f = f0 + (c < 4 ? 0 : 64) + tx * 4 + (c & 3);
-      const float val = acc[r][c];
-      if (f < p.D) store_row<1>(p.out, obf, s * p.D + f, &val);
-    }
-  }
+  bsp::tiled_product(p1, p2, c1, flags, V, Vs, nt, nts);
 }
-
-long long chunks(long long D) { return D > 0 ? (D + kF - 1) / kF : 0; }
 
 long long tiled_scratch(int V, int Vs, int dual) {
   const long long nt = (V + kT - 1) / kT;
@@ -491,8 +311,8 @@ cudaError_t launch_tiled(Pair p1, Pair p2, const int32_t* ell_src,
                          void* scratch, cudaStream_t stream) {
   const int nt = (V + kT - 1) / kT;
   const int nts = (Vs + kT - 1) / kT;
-  const long long c1 = chunks(p1.D);
-  const long long c2 = chunks(p2.D);
+  const long long c1 = bsp::tiled_chunks(p1.D);
+  const long long c2 = bsp::tiled_chunks(p2.D);
   if (nts > 65535 || c1 + c2 > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const long long dense = static_cast<long long>(nt) * kT * nts * kT;
   p1.W = static_cast<float*>(scratch);
@@ -507,11 +327,11 @@ cudaError_t launch_tiled(Pair p1, Pair p2, const int32_t* ell_src,
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(spmm_t_tiled_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             bsp::kTileSmemBytes);
   if (err != cudaSuccess) return err;
-  spmm_t_tiled_kernel<<<dim3(static_cast<unsigned>(c1 + c2), nts), kThreads,
-                        kSmemBytes, stream>>>(p1, p2, static_cast<int>(c1), flags, V, Vs,
-                                  nt, nts);
+  spmm_t_tiled_kernel<<<dim3(static_cast<unsigned>(c1 + c2), nts),
+                        bsp::kTileThreads, bsp::kTileSmemBytes, stream>>>(
+      p1, p2, static_cast<int>(c1), flags, V, Vs, nt, nts);
   return cudaGetLastError();
 }
 

@@ -1,22 +1,29 @@
-"""Device time of one train step of the PyTorch port, for an A/B of two
+"""Serving and training times of the PyTorch port's paths, for an A/B of two
 checkouts on one CUDA card, each turn in a process of its own.
 
-    python3 scripts/port_step_ab.py --ab PARENT_DIR CHANGE_DIR
-    python3 scripts/port_step_ab.py --root DIR --path mean [--native]
+    python3 scripts/port_step_ab.py --ab PARENT_DIR CHANGE_DIR [--paths ...]
+    python3 scripts/port_step_ab.py --root DIR --path mean
 
 One turn (``--root``) imports ``mrp_gnn_tpu_torch`` from ``DIR``, builds its
-CUDA kernels and times ``train.make_train_step`` on ``dynamic_swarm``'s
-first train batch (numpy renderer and graph builder, ``model.fusion``
-``--path``: "mean" or "attention", random seeded weights) with CUDA events:
-the median over 5 repetitions of the mean of 10 back-to-back steps, after
-3 warm-up steps. ``--native`` first renders and builds two batches
-with the native C++ renderer and graph builder (their OpenMP threads then
-idle beside the timed steps); the step still runs on the numpy batch.
-A turn prints one JSON line.
+CUDA kernels and, with random seeded weights, times on the path's first
+batches (numpy renderer and graph builder):
 
-``--ab`` runs, for each path, the turns PARENT, CHANGE, CHANGE --native,
-CHANGE --native, CHANGE, PARENT, then one JSON line with each label's
-times. The card's name and power limit go beside every line.
+- the train step (``train.make_train_step``) with CUDA events: the median
+  over 5 repetitions of the mean of 10 back-to-back steps, after 3 warm-up
+  steps; and its device busy time per step (profiler, 5 steps after 5);
+- the Predictor's batch latency (``Predictor.throughput``, CUDA events): the
+  median of 5 runs of 20 batches.
+
+Paths: "mean" and "attention" (``dynamic_swarm`` with that
+``model.fusion``), "block" (``multitask_batched`` with the block kernel
+swapped in through ``edge_fusion_fn``, as chip_smoke.py does) and "hideg"
+(2 fully connected scenes of 193 robots in 512 node slots: the high-degree
+attention). A turn prints one JSON line.
+
+``--ab`` runs, for each path, the turns PARENT, CHANGE, CHANGE, PARENT, then
+one JSON line with each label's times. The card's name and power limit go
+beside every line. Steps of these sizes are launch-bound and drift inside
+one long process, so compare two trees only within one call, by turns.
 """
 
 from __future__ import annotations
@@ -32,17 +39,62 @@ import time
 from pathlib import Path
 
 REPS, INNER = 5, 10
-PATHS = ("mean", "attention")
+PATHS = ("mean", "attention", "block", "hideg")
 
 
-def turn(root: Path, path: str, native: bool) -> dict:
+def path_config(path: str):
+    """(config, edge_fusion_fn) of a path."""
+    from mrp_gnn_tpu_torch.config import get_config
+    if path == "block":
+        from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
+        from mrp_gnn_tpu_torch.ops import edge
+        cfg = get_config("multitask_batched")
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"))
+
+        def swap(ops, aggregation, q, k, values, graph):
+            if ops.impl == "pallas":
+                ops = edge.with_block_kernel(ops)
+            return default_edge_fusion(ops, aggregation, q, k, values, graph)
+        return cfg, swap
+    cfg = get_config("dynamic_swarm")
+    data = dataclasses.replace(cfg.data, renderer="numpy",
+                               graph_builder="numpy")
+    if path == "hideg":
+        data = dataclasses.replace(data, num_robots=193, scenes_per_batch=2,
+                                   connectivity="full", comm_radius=0,
+                                   mobility=0.0, max_nodes=512)
+    fusion = "attention" if path == "hideg" else path
+    return cfg.replace(data=data, model=dataclasses.replace(
+        cfg.model, fusion=fusion)), None
+
+
+def busy_ms(fn, n: int = 5) -> float:
+    """Device busy time per call of ``fn`` (profiler: n warm-up calls traced
+    and dropped, then n kept)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")) / n / 1e3
+
+
+def turn(root: Path, path: str) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
     from mrp_gnn_tpu_torch import train
-    from mrp_gnn_tpu_torch.config import get_config
     from mrp_gnn_tpu_torch.data.pipeline import make_dataset
     from mrp_gnn_tpu_torch.ops import _build, bsp
+    from mrp_gnn_tpu_torch.serving import Predictor
 
     here = Path(train.__file__).resolve()
     if root.resolve() not in here.parents:
@@ -51,18 +103,9 @@ def turn(root: Path, path: str, native: bool) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.build(list(bsp.SOURCES))
-    cfg = get_config("dynamic_swarm")
-    cfg = cfg.replace(
-        data=dataclasses.replace(cfg.data, renderer="numpy",
-                                 graph_builder="numpy"),
-        model=dataclasses.replace(cfg.model, fusion=path))
-    if native:
-        it = iter(make_dataset(dataclasses.replace(
-            cfg.data, renderer="native", graph_builder="native"), "train"))
-        for _ in range(2):
-            next(it)
+    cfg, fusion_fn = path_config(path)
     x = train.batch_to_device(next(iter(make_dataset(cfg.data, "train"))), dev)
-    state = train.create_train_state(cfg, dev)
+    state = train.create_train_state(cfg, dev, fusion_fn)
     step = train.make_train_step(cfg, state.model, state.optimizer)
     for _ in range(3):
         state, _ = step(state, *x)
@@ -77,22 +120,26 @@ def turn(root: Path, path: str, native: bool) -> dict:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / INNER)
-    return {"root": str(root), "path": path, "native": native,
-            "step_ms": times, "median_ms": statistics.median(times),
+    busy = busy_ms(lambda: step(state, *x))
+    batch = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))
+    pred = Predictor(cfg, state.model, graph=batch["graph"])
+    serve = [pred.throughput(iters=20)["batch_latency_s"] * 1e3
+             for _ in range(REPS)]
+    return {"root": str(root), "path": path, "step_ms": times,
+            "median_ms": statistics.median(times), "busy_ms_per_step": busy,
+            "serve_ms": serve, "serve_median_ms": statistics.median(serve),
             "loadavg": os.getloadavg(), "torch_threads": torch.get_num_threads()}
 
 
-def ab(parent: Path, change: Path) -> dict:
-    turns = [("parent", parent, False), ("change", change, False),
-             ("change+native", change, True), ("change+native", change, True),
-             ("change", change, False), ("parent", parent, False)]
+def ab(parent: Path, change: Path, paths) -> dict:
+    turns = [("parent", parent), ("change", change), ("change", change),
+             ("parent", parent)]
+    keys = ("median_ms", "busy_ms_per_step", "serve_median_ms")
     out = {}
-    for path in PATHS:
-        res = {label: [] for label, _, _ in turns}
-        for label, root, native in turns:
+    for path in paths:
+        res = {key: {"parent": [], "change": []} for key in keys}
+        for label, root in turns:
             cmd = [sys.executable, __file__, "--root", str(root), "--path", path]
-            if native:
-                cmd.append("--native")
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -101,7 +148,8 @@ def ab(parent: Path, change: Path) -> dict:
             rec = json.loads(proc.stdout.strip().splitlines()[-1])
             print(json.dumps({"turn": label, "seconds":
                               time.perf_counter() - t0, **rec}), flush=True)
-            res[label].append(rec["median_ms"])
+            for key in keys:
+                res[key][label].append(rec[key])
         out[path] = res
     return out
 
@@ -109,9 +157,9 @@ def ab(parent: Path, change: Path) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ab", nargs=2, type=Path, metavar=("PARENT", "CHANGE"))
+    p.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS)
     p.add_argument("--root", type=Path)
     p.add_argument("--path", default="mean", choices=PATHS)
-    p.add_argument("--native", action="store_true")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -121,15 +169,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     if args.ab:
-        res = ab(*args.ab)
-        print(json.dumps({"metric": "port_step_ab", "median_ms_by_turn": res,
-                          "timing": f"CUDA events, median of {REPS} x {INNER} "
-                                    "steps per turn, one process per turn",
+        res = ab(*args.ab, args.paths)
+        print(json.dumps({"metric": "port_step_ab", "by_path": res,
+                          "timing": f"train step: CUDA events, median of "
+                                    f"{REPS} x {INNER} steps; busy: profiler "
+                                    "device time per step; serve: Predictor "
+                                    f"batch latency, median of {REPS} x 20; "
+                                    "one process per turn",
                           "nvidia_smi": smi}))
         return 0
     if args.root is None:
         p.error("give --root or --ab")
-    rec = turn(args.root, args.path, args.native)
+    rec = turn(args.root, args.path)
     print(json.dumps({**rec, "nvidia_smi": smi}))
     return 0
 

@@ -217,6 +217,37 @@ def test_fused_parts_matches_plain(dev, D, dtype):
                 and (acc[empty] == 0).all())
 
 
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expanded_forward_forms_match_plain_bit_for_bit(dev, tiled, D, dtype):
+    """Each form of the high-degree forward (bsp.run_expanded_forward,
+    forced) against the plain attention: twice with the same bits, nodes
+    without a valid slot exactly 0; bsp.expanded_forward takes the rule's
+    form (tiled on the node view of width 208) and counts one launch."""
+    g = _wide_graph().to(dev)
+    xp = g.bsp_expanded
+    src_x, mask_x = bsp.expand_ell_view(g.ell_src, g.ell_mask, xp.rows,
+                                        xp.width)
+    q, k, v = _inputs(dev, 256, 64, 64, D, seed=29)
+    q_s, kf = bsp._scaled(q, k)
+    v = v.to(dtype)
+    args = (q_s, kf, v, src_x, mask_x, xp.rows)
+    got, again = (bsp.run_expanded_forward(_Uncounted, *args, tiled=tiled)
+                  for _ in range(2))
+    before = bsp.fused_attention_parts.launches
+    rule = bsp.expanded_forward(*args)
+    assert bsp.fused_attention_parts.launches == before + 1
+    want = bsp.bsp_attention_fused_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, again)
+    _assert_kernel_close(got, want)
+    assert bool((got[~g.ell_mask.any(dim=1)] == 0).all())
+    assert bsp.tiled_form(256, 256, xp.rows * xp.width)
+    if tiled:
+        assert torch.equal(rule, got)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_expanded_attention_grads_match_plain(dev, dtype):
     """ExpandedFusedAttention (parts kernel, combine, backward kernels on
@@ -323,6 +354,25 @@ def test_block_attention_matches_plain(dev, scenes, robots, slots, D, dtype):
     assert edge.block_attention.launches == before + 1 and got.dtype == dtype
     want = edge.block_fused_attention_reference(q, k, v, g)
     torch.cuda.synchronize()
+    _assert_block_close(got, want)
+    assert bool((got[~g.node_mask] == 0).all())
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 16, 33, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_scene_sizes_match_plain(dev, n, dtype):
+    """Each scene-size bucket of the block kernel (8, 16 and 32 nodes, 16-
+    byte rows) and the general kernel past 32: 3 scenes of n in 4 n slots,
+    so the fourth scene is padded and gives exactly 0."""
+    from mrp_gnn_tpu_torch.graph import batch_fully_connected
+    from mrp_gnn_tpu_torch.ops import edge
+    g = batch_fully_connected(3, n, max_nodes=4 * n).to(dev)
+    q, k, v = _inputs(dev, g.max_nodes, 64, 64, 1024, seed=14)
+    v = v.to(dtype)
+    got = edge.block_fused_attention(q, k, v, g)
+    want = edge.block_fused_attention_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
     _assert_block_close(got, want)
     assert bool((got[~g.node_mask] == 0).all())
 

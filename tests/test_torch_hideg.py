@@ -1,8 +1,10 @@
 """The high-degree path (ELL width past 128, a row-expanded plan) against the
 JAX package on CPU, the Pallas kernels in interpret mode as
 tests/test_pallas_bsp.py runs them: the parts kernel's plain version, the
-one-pass and two-sweep expanded attention with their gradients, the
-expanded mean, the combine and the dispatch.
+tiled forward's plain version (the softmax of each node over its node-view
+slots) and the form rule that ExpandedFusedAttention follows, the one-pass
+and two-sweep expanded attention with their gradients, the expanded mean,
+the combine and the dispatch.
 
 Graphs: a fully connected team of 130 robots in 256 node slots (in-degree
 129, ELL width 136, expanded to 2 rows of 72) and mixed teams of 140, 30
@@ -280,3 +282,71 @@ def test_form_rule_on_the_paths_shapes():
     assert not bsp.tiled_form(512, 512, bsp.TILED_MIN_DEG - 1)
     assert bsp.tiled_form(4096, 4096, 64)
     assert not bsp.tiled_form(8192, 4096, 200)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_forward_plain_version_matches_jax(dtype):
+    """The tiled forward's plain version (the softmax of each node over its
+    node-view slots, bsp.expanded_forward_reference with tiled=True) against
+    JAX expanded_attention_fused (_fused_parts_kernel in interpret mode and
+    _xp_combine) on the crafted wide graph: empty rows, duplicate edges, a
+    degree-200 row and padded nodes. f32: 1e-5 of the largest output. bf16:
+    JAX rounds each unnormalised weight to bf16 before its value product
+    (at most 2^-9 of a weight <= 1, so 2^-9 of the largest value in all),
+    and each side rounds its output to bf16 once (2^-8 of the largest
+    output each)."""
+    jgb, tgb = _crafted_wide()
+    xp = tgb.bsp_expanded
+    V = jgb.max_nodes
+    q, k, v = _rand(V, 8, 8, 64, seed=9)
+    want = np.asarray(JB.expanded_attention_fused(
+        q, k, jnp.asarray(v, dtype), jgb).astype(jnp.float32))
+    q_s, kf = bsp._scaled(torch.from_numpy(q), torch.from_numpy(k))
+    src_x, mask_x = bsp.expand_ell_view(tgb.ell_src, tgb.ell_mask, xp.rows,
+                                        xp.width)
+    assert bsp.tiled_form(V, V, xp.rows * xp.width)
+    got = bsp.expanded_forward_reference(
+        q_s, kf, torch.from_numpy(v).to(getattr(torch, dtype)), src_x,
+        mask_x, xp.rows, tiled=True)
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        tol = 1e-5 * float(np.abs(want).max())
+    else:
+        tol = (2.0 ** -9 * float(np.abs(v).max())
+               + 2 * 2.0 ** -8 * float(np.abs(want).max()))
+    _close(got, want, dict(rtol=0, atol=tol))
+    no_edge = ~tgb.ell_mask.any(dim=1)
+    assert no_edge.sum() > V // 2  # the padded nodes and node 3
+    assert bool((got[no_edge] == 0).all())
+
+
+def test_expanded_fused_attention_follows_the_form_rule(monkeypatch):
+    """On the CPU, ExpandedFusedAttention's forward is the plain version of
+    the form bsp.tiled_form gives (tiled on the crafted wide graph's node
+    view; per-edge, the parts and the combine, once the rule's threshold
+    passes its width), bit for bit, and its gradients match jax.grad of JAX
+    expanded_attention_fused to 1e-5 of each gradient's largest element in
+    both forms."""
+    jgb, tgb = _crafted_wide()
+    xp = tgb.bsp_expanded
+    V = jgb.max_nodes
+    q, k, v, ct = _rand(V, 8, 8, 64, 64, seed=10)
+    want_g = jax.grad(lambda q, k, v: jnp.sum(
+        JB.expanded_attention_fused(q, k, v, jgb) * ct), argnums=(0, 1, 2))(
+            q, k, v)
+    src_x, mask_x = bsp.expand_ell_view(tgb.ell_src, tgb.ell_mask, xp.rows,
+                                        xp.width)
+    for threshold, tiled in ((bsp.TILED_MIN_DEG, True),
+                             (xp.rows * xp.width + 1, False)):
+        monkeypatch.setattr(bsp, "TILED_MIN_DEG", threshold)
+        assert bsp.tiled_form(V, V, xp.rows * xp.width) == tiled
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        out = bsp.expanded_attention_fused(*leaves, tgb)
+        q_s, kf = bsp._scaled(*leaves[:2])
+        form = bsp.expanded_forward_reference(q_s, kf, leaves[2], src_x,
+                                              mask_x, xp.rows, tiled=tiled)
+        assert torch.equal(out, form)
+        (out * torch.from_numpy(ct)).sum().backward()
+        for t, w in zip(leaves, want_g):
+            w = np.asarray(w)
+            _close(t.grad, w, dict(rtol=0, atol=1e-5 * float(np.abs(w).max())))
