@@ -60,7 +60,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forms of the SDDMM and the transposed SpMM (per-edge and tiled, each
    forced) at the hideg node view, on the crafted graphs of degree 100 and
    200 and at the swarm's training batch, f32, bf16 and mixed operands,
-   single = dual and reruns bit for bit;
+   single = dual and reruns bit for bit; both forms of the fused forward
+   (``bsp.FUSED_FORMS``, each forced) on the swarm batch and the crafted
+   graph, reruns bit for bit and the wrapper bit for bit against its
+   rule's form;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -75,14 +78,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    dual transposed SpMM against two single launches, in turns; the dual
    SDDMM at the hideg node view; both forms of the dual SDDMM and the dual
    transposed SpMM in turns at the swarm, hideg and fully connected teams
-   of 9 to 129 robots (the form rule's crossover); the Predictor's device-
+   of 9 to 129 robots (the form rule's crossover); both forms of the fused
+   forward in turns at the attention batch (``fused_form_ab``, f32 and
+   bf16) and both forms of the single SDDMM at the ell path's logits
+   (``sddmm_ab``); the Predictor's device-
    side batch latency and whole-request latency; the train step's device
    time with the kernels and with the plain ops, one whole step through
    ``train()`` (host clock, data included; numpy renderer on the attention
    path, native renderer and builder on the bsp2 path's config), peak
    memory, and profiler breakdowns of device time by kernel, from which the
-   hideg and block paths are checked for the kernel bodies they must run
-   (``PATH_BODIES``).
+   attention, hideg, block and ell paths are checked for the kernel bodies
+   they must run (``PATH_BODIES``, ``TRAIN_BODIES``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -125,7 +131,8 @@ TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
 # largest gradient: f32 sums in another order; with bf16 values the plain
 # autograd rounds each slot's value gradient to bf16 before summing them.
 TOL_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
-PORT_KERNEL_BODIES = ("fused_attention_kernel", "sddmm_kernel", "spmm_kernel",
+PORT_KERNEL_BODIES = ("fused_attention_kernel", "fused_vec_kernel",
+                      "sddmm_rows_kernel", "sddmm_wide_kernel", "spmm_kernel",
                       "spmm_t_kernel", "spmm_t2_kernel", "fused_parts_kernel",
                       "weights_kernel", "ell_max_kernel", "ell_softmax_kernel",
                       "block_attention_kernel", "tile_flags_kernel",
@@ -371,7 +378,54 @@ def phase_kernels(dev) -> dict:
                                   dt == torch.bfloat16)
             if not bool((got[empty] == 0).all()):
                 raise AssertionError("rows without a valid slot must be 0")
+    q_s, kf = bsp._scaled(q, k)
+    check_fused_forms(q_s, kf, v, g, "swarm")
+    for D_c in (1030, 4096):
+        qc, kc, vc = attention_inputs(cg.max_nodes, dk, D_c, 1, dev)
+        check_fused_forms(*bsp._scaled(qc, kc), vc, cg, f"crafted D {D_c}")
     return {"graph": g, "q": q, "k": k, "v": v, "errs": errs}
+
+
+def fused_form(form: str, *args):
+    """bsp_fused_attention.cu in the form given, whatever bsp.fused_form
+    says."""
+    return bsp.run_fused_attention(_Uncounted, *args, form=form)
+
+
+def check_fused_forms(q_s, k, v, g, tag: str) -> None:
+    """Both forms of the fused forward, each forced, against the plain
+    version (f32 and bf16 values), a second launch bit for bit, rows without
+    a valid slot exactly 0; the wrapper's launch bit for bit against its
+    rule's form; at vec 1 the "vec" form raises."""
+    src, mask = g.ell_src, g.ell_mask
+    empty = ~mask.any(dim=1)
+    for dt in (torch.float32, torch.bfloat16):
+        vv = v.to(dt)
+        want = bsp.fused_attention_reference(q_s, k, vv, src, mask)
+        vec = bsp._fused_vec(vv, vv)
+        rule = bsp.FUSED_FORMS[bsp.fused_form(vec, dt == torch.bfloat16)]
+        for form in bsp.FUSED_FORMS:
+            if vec == 1 and form != "row":
+                try:
+                    fused_form(form, q_s, k, vv, src, mask)
+                except ValueError:
+                    continue
+                raise AssertionError(f"the {form} form took 4-byte rows")
+            got = fused_form(form, q_s, k, vv, src, mask)
+            again = fused_form(form, q_s, k, vv, src, mask)
+            torch.cuda.synchronize()
+            check_kernel_vs_plain(f"bsp_fused_attention {form}, {tag} {dt}",
+                                  got, want, dt == torch.bfloat16)
+            if not (torch.equal(got, again) and bool((got[empty] == 0).all())):
+                raise AssertionError(f"bsp_fused_attention {form}, {tag} {dt}: "
+                                     "two launches differ, or an empty row "
+                                     "is not 0")
+            if form == rule and not torch.equal(
+                    got, bsp.fused_attention(q_s, k, vv, src, mask)):
+                raise AssertionError("the wrapper does not give its rule's "
+                                     "form's bits")
+    log(f"[kernel] bsp_fused_attention, {tag}: both forms agree with the "
+        "plain version and rerun bit for bit")
 
 
 def backward_inputs(g, dk: int, D: int, seed: int, dev) -> dict:
@@ -922,8 +976,9 @@ def rule_form(g) -> str:
 def check_forms(x: dict, tag: str, errs: dict | None = None) -> None:
     """Both forms of the SDDMM and the transposed SpMM, each forced, against
     their plain versions on the operands of ``backward_inputs`` (f32, bf16
-    and mixed operands): the dual SDDMM and a single one, bit for bit
-    against the dual's second output; the dual transposed SpMM, a single
+    and mixed operands): the dual SDDMM and a single launch of each of its
+    pairs, bit for bit against the dual's outputs, the second single
+    twice (bit for bit); the dual transposed SpMM, a single
     one twice (bit for bit) and a second single one, the dual bit for bit
     against the singles."""
     g = x["graph"]
@@ -945,6 +1000,8 @@ def check_forms(x: dict, tag: str, errs: dict | None = None) -> None:
             name = f"{form}, {tag}, values {vdt} cotangent {gdt}"
             lo, da = sddmm_form(tiled, x["q_s"], x["kf"], src, mask, ct, v)
             single = sddmm_form(tiled, ct, v, src, mask)
+            single_again = sddmm_form(tiled, ct, v, src, mask)
+            single_lo = sddmm_form(tiled, x["q_s"], x["kf"], src, mask)
             dv, dk = spmm_t_form(tiled, ((x["alpha"], ct, vdt),
                                          (x["dlog"], x["q_s"], torch.float32)),
                                  src, mask, V)
@@ -962,9 +1019,11 @@ def check_forms(x: dict, tag: str, errs: dict | None = None) -> None:
                                        want_dv, vdt == torch.bfloat16)
             e4 = check_kernel_vs_plain(f"bsp_spmm_t2 dk, {name}", dk, want_dk,
                                        False)
-            if not torch.equal(single, da):
-                raise AssertionError(f"bsp_sddmm, {name}: the single form "
-                                     "differs from the dual's second output")
+            if not (torch.equal(single, da) and torch.equal(single_lo, lo)
+                    and torch.equal(single, single_again)):
+                raise AssertionError(f"bsp_sddmm, {name}: a single launch "
+                                     "differs from the dual's output, or two "
+                                     "runs differ")
             if not (torch.equal(one, again) and torch.equal(dv, one)
                     and torch.equal(dk, two)):
                 raise AssertionError(f"bsp_spmm_t, {name}: two runs differ, "
@@ -1261,13 +1320,55 @@ def phase_timings(kin: dict, serve: dict, tag: dict) -> dict:
             "call_ms": call_ms, **tag}
     log(json.dumps(line))
 
-    predictor_timings(serve, tag, "attention")
+    check_path_bodies("attention", predictor_timings(serve, tag, "attention"),
+                      "serving profile")
     return {"name": "bsp_fused_attention", "route": "cuda",
             "source": "mrp_gnn_tpu_torch/ops/csrc/bsp_fused_attention.cu",
             "replaces": "mrp_gnn_tpu/ops/pallas_bsp.py:707",
             "max_abs_err": kin["errs"]["torch.float32"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_variant_timings(kin: dict, ek: dict, tag: dict) -> None:
+    """The variants of the two kernels redesigned last, in turns: both
+    forms of the fused forward at the attention batch (f32 and bf16
+    values); both forms of the single SDDMM at the ell path's logits (each
+    in order, then in reverse)."""
+    g, q, k, v = kin["graph"], kin["q"], kin["k"], kin["v"]
+    q_s, kf = bsp._scaled(q, k)
+    src, mask = g.ell_src, g.ell_mask
+    order = list(bsp.FUSED_FORMS) + list(reversed(bsp.FUSED_FORMS))
+    ms = {}
+    for dt in (torch.float32, torch.bfloat16):
+        vv = v.to(dt)
+        turns = {f: [] for f in bsp.FUSED_FORMS}
+        for form in order:
+            turns[form].append(device_ms(
+                lambda: fused_form(form, q_s, kf, vv, src, mask)))
+        ms[str(dt)] = turns
+    rule = {str(dt): bsp.FUSED_FORMS[bsp.fused_form(4 if dt == torch.float32
+                                                    else 8,
+                                                    dt == torch.bfloat16)]
+            for dt in (torch.float32, torch.bfloat16)}
+    log(json.dumps({"metric": "fused_form_ab", "shape": {
+        "V": int(src.shape[0]), "deg": int(src.shape[1]),
+        "edges": int(mask.sum()), "dk": int(q.shape[1]), "D": int(v.shape[1])},
+        "rule": rule, "device_ms": ms,
+        "timing": "device time per call (profiler); turns: the forms in "
+                  "order, then in reverse", **tag}))
+    x = ek["inputs"]
+    xs, xm = x["graph"].ell_src, x["graph"].ell_mask
+    turns = {form: [] for _, form in FORMS}
+    for tiled, form in FORMS + FORMS[::-1]:
+        turns[form].append(device_ms(lambda: sddmm_form(tiled, x["q_s"],
+                                                        x["kf"], xs, xm)))
+    log(json.dumps({"metric": "sddmm_ab", "use": "ell logits, single",
+                    "V": int(xs.shape[0]), "deg": int(xs.shape[1]),
+                    "edges": int(xm.sum()), "d": int(x["q_s"].shape[1]),
+                    "rule": rule_form(x["graph"]), "device_ms": turns,
+                    "timing": "device time per call (profiler), f32; turns: "
+                              "the forms in order, then in reverse", **tag}))
 
 
 def predictor_timings(serve: dict, tag: dict, path: str) -> dict:
@@ -1773,18 +1874,28 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> dict:
 
 
 # The kernel bodies that a path's profiles must show, and those they must not:
-# the rule's tiled form of the high-degree forward, the block kernel's bucket
-# for the robot teams of the block path.
+# the fused forward's vector form on the attention path, the per-edge
+# SDDMM's narrow kernel on the ell path, the rule's tiled form of the
+# high-degree forward, the block kernel's bucket for the robot teams of the
+# block path. TRAIN_BODIES: what a path's train profile must show besides.
 PATH_BODIES = {
+    "attention": (("fused_vec_kernel",), ("fused_attention_kernel",)),
+    "ell": (("sddmm_rows_kernel",), ("sddmm_wide_kernel",)),
     "hideg": (("fused_parts_weights_kernel", "fused_parts_tiled_kernel"),
               ("fused_parts_kernel",)),
     "block": (("block_attention_f32_kernel",), ("block_attention_kernel",)),
 }
 
 
+TRAIN_BODIES = {"attention": ("sddmm_wide_kernel",)}
+
+
 def check_path_bodies(path: str, ours: dict, where: str) -> None:
-    """The path ran the kernel bodies of PATH_BODIES."""
+    """The path ran the kernel bodies of PATH_BODIES (and of TRAIN_BODIES
+    in its train profile)."""
     run, not_run = PATH_BODIES[path]
+    if where == "train profile":
+        run = run + TRAIN_BODIES.get(path, ())
     if not (all(b in ours for b in run) and not any(b in ours for b in not_run)):
         raise AssertionError(f"the {path} path's {where} ran {sorted(ours)}, "
                              f"expected {run} and none of {not_run}")
@@ -1853,7 +1964,10 @@ def main() -> int:
         kernels += phase_ell_timings(ek, tag)
         kernels += phase_bsp2_timings(bk2, tag)
         phase_form_timings(fk, tag)
-        phase_train_timings(tr["attention"], tag)
+        phase_variant_timings(kin, ek, tag)
+        check_path_bodies("attention", phase_train_timings(tr["attention"],
+                                                           tag),
+                          "train profile")
         for path in ("hideg", "mean", "max", "block", "ell", "bsp2"):
             served = predictor_timings(serve[path], tag, path)
             trained = phase_train_timings(tr[path], tag, loop=path == "bsp2",

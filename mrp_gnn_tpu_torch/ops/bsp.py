@@ -71,6 +71,12 @@ TILE = 64
 TILED_MIN_DEG = 64
 TILED_MAX_DENSE = 1 << 24
 _KERNEL = "bsp_fused_attention"
+# The forms of the fused forward, by their index in
+# csrc/bsp_fused_attention.cu (whose note describes each): "row" (any D)
+# and "vec" (16-byte value rows only). :func:`fused_form` takes "vec" for
+# f32 values and "row" for bf16, the faster form of each type at the
+# attention path's shapes on the card (PERF.md section 6).
+FUSED_FORMS = ("row", "vec")
 # The CUDA sources of the port (csrc/<name>.cu).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
            "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
@@ -315,6 +321,22 @@ def _fused_vec(values: torch.Tensor, out: torch.Tensor) -> int:
                      and out.data_ptr() % 16 == 0) else 1
 
 
+def fused_form(vec: int, bf16: bool, form: str | None = None) -> int:
+    """The index in ``csrc/bsp_fused_attention.cu`` of the fused forward's
+    form for a launch with ``vec`` features per load (:func:`_fused_vec`)
+    and f32 (``bf16`` False) or bf16 values: ``form`` None takes "vec" for
+    f32 values in 16-byte rows and "row" otherwise; a name of FUSED_FORMS
+    forces that form (the card's A/B). Raises ValueError for an unknown
+    form, or a form other than "row" at vec 1."""
+    if form is None:
+        form = "vec" if vec > 1 and not bf16 else "row"
+    if form not in FUSED_FORMS:
+        raise ValueError(f"unknown fused form {form!r}; one of {FUSED_FORMS}")
+    if form != "row" and vec == 1:
+        raise ValueError(f"the {form} form needs 16-byte value rows")
+    return FUSED_FORMS.index(form)
+
+
 def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
                     ell_src: torch.Tensor,
                     ell_mask: torch.Tensor) -> torch.Tensor:
@@ -327,19 +349,31 @@ def fused_attention(q_s: torch.Tensor, k: torch.Tensor, values: torch.Tensor,
     """
     if values.device.type == "cpu":
         return fused_attention_reference(q_s, k, values, ell_src, ell_mask)
+    return run_fused_attention(fused_attention, q_s, k, values, ell_src,
+                               ell_mask)
+
+
+def run_fused_attention(counter, q_s, k, values, ell_src, ell_mask,
+                        form: str | None = None) -> torch.Tensor:
+    """Check CUDA inputs and launch ``csrc/bsp_fused_attention.cu`` in the
+    form :func:`fused_form` gives (``form`` forces one, for the card's A/B
+    of the forms), counting the launch in ``counter.launches``:
+    :func:`fused_attention` without the plain path."""
     _check_cuda_inputs(q_s, k, values, ell_src, ell_mask)
     out = torch.empty_like(values)
     if out.numel() == 0:
         return out
     V, deg = ell_src.shape
+    vec = _fused_vec(values, out)
     _build.run(_KERNEL, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                q_s.data_ptr(), k.data_ptr(), values.data_ptr(),
                ell_src.data_ptr(), ell_mask.data_ptr(), out.data_ptr(), V,
                deg, q_s.shape[1], values.shape[1],
-               int(values.dtype == torch.bfloat16), _fused_vec(values, out),
+               int(values.dtype == torch.bfloat16), vec,
+               fused_form(vec, values.dtype == torch.bfloat16, form),
                values.device.index, _build.stream(values))
-    fused_attention.launches += 1
+    counter.launches += 1
     return out
 
 

@@ -179,15 +179,6 @@ block_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
 constexpr int kAccFloats = 32;  // the accumulator, for any n and type
 
-// A 16-byte cp.async from global to shared memory; !full copies nothing and
-// fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(full ? 16 : 0));
-}
-
 // 16 bytes of T staged in shared memory, as f32.
 template <typename T>
 __device__ __forceinline__ void unpack16(const uint4& v, float* x);
@@ -265,8 +256,8 @@ __device__ __forceinline__ void small_scenes(
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const bool full = active && j < n;
-    cp_async16(rows_sh + j * kThreads + tid,
-               full ? values + (base + j) * D + f0 : values, full);
+    bsp::cp_async16(rows_sh + j * kThreads + tid,
+                    full ? values + (base + j) * D + f0 : values, full);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 

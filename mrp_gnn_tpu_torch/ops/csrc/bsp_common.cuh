@@ -1,9 +1,10 @@
 // Shared device code of the port's kernels (bsp_fused_attention.cu,
 // bsp_fused_parts.cu, bsp_weights.cu, bsp_sddmm.cu, bsp_spmm.cu,
 // bsp_spmm_t.cu, ell_max.cu, ell_softmax.cu, block_attention.cu): 16-byte
-// vector loads and stores with f32 arithmetic, warp reductions, the
-// compaction of a row's valid slots, a row's softmax weights, the body of
-// the fused attention and the node tile of the tiled forms.
+// vector loads and stores with f32 arithmetic, warp and lane-group
+// reductions, 16-byte cp.async staging, the compaction of a row's valid
+// slots, a row's softmax weights, the per-row body of the fused attention
+// (the parts kernel's) and the node tile of the tiled forms.
 
 #pragma once
 
@@ -104,11 +105,52 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The lanes of one group of g lanes (g a power of two up to 32, groups
+// aligned in the warp) sum x with an xor tree, every lane of the warp
+// taking part: o = g / 2, g / 4, .., 1, the order of warp_sum at g 32.
+__device__ __forceinline__ float group_sum(float x, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The lanes one group of a dot over `loads` loads takes: the power of two
+// that covers them, at most 32.
+__host__ __device__ __forceinline__ int group_lanes(int loads) {
+  int g = 1;
+  while (g < loads && g < 32) g <<= 1;
+  return g;
+}
+
+// The lane of the k-th set bit of `bits` (k counted from 0, k < popc(bits)).
+__device__ __forceinline__ int nth_set_bit(unsigned bits, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(bits & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      bits >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// A 16-byte cp.async from global to shared memory; !full copies nothing and
+// fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
 // Run by all 32 lanes of one warp: writes the source node and the slot
 // index of row `row`'s valid slots j, j_begin <= j < min(j_end, deg), in
 // slot order, to src_sh / slot_sh (slot_sh may be null) and returns their
-// count. Slot order fixes the order of every later sum, so a kernel gives
-// the same bits on every launch.
+// count. Each lane reads its slot's mask and source together, so a chunk
+// of 32 slots costs one round trip. Slot order fixes the order of every
+// later sum, so a kernel gives the same bits on every launch.
 __device__ __forceinline__ int compact_valid_slots(
     const int32_t* __restrict__ ell_src, const uint8_t* __restrict__ ell_mask,
     long long row, int deg, int32_t* src_sh, int32_t* slot_sh,
@@ -118,11 +160,13 @@ __device__ __forceinline__ int compact_valid_slots(
   int base = 0;
   for (int j0 = j_begin; j0 < stop; j0 += 32) {
     const int j = j0 + lane;
-    const bool valid = j < stop && ell_mask[row * deg + j] != 0;
+    const bool in = j < stop;
+    const bool valid = in && ell_mask[row * deg + j] != 0;
+    const int32_t src = in ? ell_src[row * deg + j] : 0;
     const unsigned ballot = __ballot_sync(0xffffffffu, valid);
     if (valid) {
       const int at = base + __popc(ballot & ((1u << lane) - 1u));
-      src_sh[at] = ell_src[row * deg + j];
+      src_sh[at] = src;
       if (slot_sh != nullptr) slot_sh[at] = j;
     }
     base += __popc(ballot);

@@ -33,15 +33,25 @@
 // Per-edge form. Bound: bytes. The function reads a1, b1, a2, b2, ell_src
 // and ell_mask once and writes the outputs once: at the training shape (V
 // 256, deg 32, d1 64, d2 8192, f32) 17 MB, about 5 us at 3.35 TB/s,
-// against 2 x edges x (d1 + d2) FMAs (28 MFLOP). The b rows are gathered
-// once per in-edge (about 6.6 times), mostly from the 50 MB L2. One block
-// per destination row. Warp 0 compacts the row's valid slots into shared
-// memory in slot order, 128 at a time (so any width fits in 9 KB of shared
-// memory); then, slot after slot, every thread takes its share of the
-// feature axis (16-byte loads where the rows allow) for both pairs, the
-// warps reduce with shuffles and write one partial per warp to shared
-// memory. One pass after each 128 slots sums the warps' partials in a fixed
-// order.
+// against 2 x edges x (d1 + d2) FMAs (28 MFLOP); the single form at the
+// ell path's logits (d 64) 0.2 MB, 0.06 us, below any launch's time, so
+// there the time is the launch and the chain of dependent reads (slots,
+// then b rows). The b rows are gathered once per in-edge, mostly from the
+// 50 MB L2. Every dot of a pair is one chain in one order (lane_dot and
+// group_sum), which depends on the pair's d and flags alone. A narrow pair
+// (d <= 256 with 16-byte loads): a warp per row splits into groups of d / 8
+// lanes, one valid slot each, and reads the row's slots 32 at a time (mask
+// and source together, a ballot of the valid ones); kBatch passes of the
+// groups have their loads in flight together and each group reduces with
+// an xor tree over its lanes. sddmm_rows_kernel takes kRowWarps rows a
+// block when every pair is narrow, with no barrier and no shared memory
+// (1, 2, 4 and 8 rows a block took the same time on the card, PERF.md
+// section 6).
+// A wide pair (the dual form's d2 8192): sddmm_wide_kernel, a block per
+// row whose 256 threads share each dot (one round trip of 16-byte loads
+// per thread at d 8192), two valid slots' loads in flight at a time, with
+// one barrier per 32 slots; a narrow pair of the same launch runs on the
+// block's last warp as above. Any ELL width works, 32 slots at a time.
 //
 // Tiled form. Bound: operations at a wide ELL. At the high-degree backward's
 // node view (V 512, deg 192, 74,112 edges, d1 64, d2 8192) the function is
@@ -82,13 +92,14 @@
 
 namespace {
 
-using bsp::kMaxDeg;
-using bsp::kMaxWarps;
 using bsp::VecIO;
 
 constexpr int kABf16 = 1;  // flags of one operand pair
 constexpr int kBBf16 = 2;
 constexpr int kVec8 = 4;   // 16-byte loads: d % 8 == 0, aligned rows
+constexpr int kRowWarps = 4;       // rows per block when every pair is narrow
+constexpr int kWideThreads = 256;  // a block per row when some pair is wide
+constexpr int kBatch = 4;  // passes of a warp's groups in flight together
 
 __device__ __forceinline__ void load8(const void* p, bool bf16, long long i,
                                       float* x) {
@@ -103,93 +114,186 @@ __device__ __forceinline__ float load1(const void* p, bool bf16, long long i) {
   return x;
 }
 
-// This thread's share of <a[arow], b[brow]> over d features.
-__device__ __forceinline__ float partial_dot(const void* a, const void* b,
-                                             long long arow, long long brow,
-                                             int d, int flags) {
-  const bool abf = flags & kABf16;
-  const bool bbf = flags & kBBf16;
-  const long long ia = arow * d;
-  const long long ib = brow * d;
+struct Pair {
+  const void* a;
+  const void* b;
+  int d;
+  int flags;
+};
+
+// Loads of one dot: 16 bytes (8 elements) where the pair allows, else one
+// element. A pair is narrow when a group of at most 32 lanes covers its
+// dot with one load each (d <= 256 with 16-byte loads, d <= 32 without).
+__host__ __device__ __forceinline__ int dot_loads(int d, int flags) {
+  return (flags & kVec8) ? (d + 7) / 8 : d;
+}
+
+__host__ __device__ __forceinline__ bool narrow(const Pair& p) {
+  return dot_loads(p.d, p.flags) <= 32;
+}
+
+// One chain of FMAs over the elements of load t, t + G, t + 2G, ... of
+// <a[arow], b[brow]>, in order. With the group_sum over its G lanes this
+// is the one order of every dot of a pair: it depends on d and the flags
+// alone, so the dual form gives the bits of two single launches.
+__device__ __forceinline__ float lane_dot(const Pair& p, long long arow,
+                                          long long brow, int t, int G) {
+  const bool abf = p.flags & kABf16;
+  const bool bbf = p.flags & kBBf16;
+  const long long ia = arow * p.d;
+  const long long ib = brow * p.d;
   float acc = 0.f;
-  if (flags & kVec8) {
+  if (p.flags & kVec8) {
 #pragma unroll 4
-    for (long long f = threadIdx.x * 8LL; f < d; f += blockDim.x * 8LL) {
+    for (int f = t * 8; f < p.d; f += G * 8) {
       float xa[8], xb[8];
-      load8(a, abf, ia + f, xa);
-      load8(b, bbf, ib + f, xb);
+      load8(p.a, abf, ia + f, xa);
+      load8(p.b, bbf, ib + f, xb);
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc = fmaf(xa[i], xb[i], acc);
     }
   } else {
-    for (long long f = threadIdx.x; f < d; f += blockDim.x)
-      acc = fmaf(load1(a, abf, ia + f), load1(b, bbf, ib + f), acc);
+    for (int f = t; f < p.d; f += G)
+      acc = fmaf(load1(p.a, abf, ia + f), load1(p.b, bbf, ib + f), acc);
   }
   return acc;
 }
 
-// grid V, block a multiple of 32 up to kMaxThreads. d2 == 0: single form.
-__global__ void __launch_bounds__(bsp::kMaxThreads)
-sddmm_kernel(const void* __restrict__ a1, const void* __restrict__ b1, int d1,
-             int flags1, const void* __restrict__ a2,
-             const void* __restrict__ b2, int d2, int flags2,
-             const int32_t* __restrict__ ell_src,
-             const uint8_t* __restrict__ ell_mask, float* __restrict__ out1,
-             float* __restrict__ out2, int deg) {
-  __shared__ int32_t src_sh[kMaxDeg];
-  __shared__ int32_t slot_sh[kMaxDeg];
-  __shared__ float red1[kMaxWarps][kMaxDeg];
-  __shared__ float red2[kMaxWarps][kMaxDeg];
-  __shared__ int n_sh;
+// One warp's read of slots j0 .. j0 + 31 of row `row`: its lane's source
+// (mask and source read together) and the ballot of the valid slots.
+struct Slots {
+  unsigned valid;
+  int src;
+};
 
+__device__ __forceinline__ Slots read_slots(const int32_t* __restrict__ ell_src,
+                                            const uint8_t* __restrict__ ell_mask,
+                                            long long row, int deg, int j0) {
+  const int j = j0 + (threadIdx.x & 31);
+  const bool in = j < deg;
+  const long long at = row * deg + j;
+  const bool v = in && ell_mask[at] != 0;
+  const int src = in ? ell_src[at] : 0;
+  return Slots{__ballot_sync(0xffffffffu, v), src};
+}
+
+// All 32 lanes of a warp, a narrow pair: out[row, j] = <a[row], b[src_j]>
+// for every slot j of the row, 0 on masked ones. The warp splits into
+// groups of G lanes, one valid slot each; kBatch passes of the groups have
+// their loads in flight together, with no barrier.
+__device__ void narrow_row(const Pair& p, long long row, int deg,
+                           const int32_t* __restrict__ ell_src,
+                           const uint8_t* __restrict__ ell_mask,
+                           float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int G = bsp::group_lanes(dot_loads(p.d, p.flags));
+  const int S = 32 / G;
+  const int grp = lane / G;
+  const int t = lane & (G - 1);
+  for (int j0 = 0; j0 < deg; j0 += 32) {
+    const Slots sl = read_slots(ell_src, ell_mask, row, deg, j0);
+    if (j0 + lane < deg && !((sl.valid >> lane) & 1u))
+      out[row * deg + j0 + lane] = 0.f;
+    const int n = __popc(sl.valid);
+    for (int k0 = 0; k0 < n; k0 += S * kBatch) {
+      float part[kBatch];
+      int pos[kBatch];
+#pragma unroll
+      for (int it = 0; it < kBatch; ++it) {
+        const int kk = k0 + it * S + grp;
+        pos[it] = kk < n ? bsp::nth_set_bit(sl.valid, kk) : -1;
+        const int src = __shfl_sync(0xffffffffu, sl.src, pos[it] & 31);
+        part[it] = pos[it] >= 0 ? lane_dot(p, row, src, t, G) : 0.f;
+      }
+#pragma unroll
+      for (int it = 0; it < kBatch; ++it) {
+        const float x = bsp::group_sum(part[it], G);
+        if (pos[it] >= 0 && t == 0) out[row * deg + j0 + pos[it]] = x;
+      }
+    }
+  }
+}
+
+// grid ceil(V / kRowWarps), block 32 x kRowWarps: every pair narrow, one
+// warp per row. p2.d == 0: single form.
+__global__ void __launch_bounds__(32 * kRowWarps)
+sddmm_rows_kernel(Pair p1, Pair p2, const int32_t* __restrict__ ell_src,
+                  const uint8_t* __restrict__ ell_mask,
+                  float* __restrict__ out1, float* __restrict__ out2, int V,
+                  int deg) {
+  const long long row = static_cast<long long>(blockIdx.x) * kRowWarps
+                        + (threadIdx.x >> 5);
+  if (row >= V) return;
+  narrow_row(p1, row, deg, ell_src, ell_mask, out1);
+  if (p2.d > 0) narrow_row(p2, row, deg, ell_src, ell_mask, out2);
+}
+
+// grid V, block kWideThreads: some pair wide. A narrow pair runs on the
+// block's last warp (narrow_row). A wide pair's dots take the whole block,
+// two valid slots at a time with both slots' loads in flight: thread tid
+// chains the loads tid, tid + kWideThreads, ... of each dot, each warp
+// reduces with an xor tree and parks its partial in shared memory, and
+// after each 32 slots one barrier, then every slot's partials are summed
+// over the warps in order. The order depends on d and the flags alone (the
+// block is always kWideThreads), so the dual form gives the bits of two
+// single launches.
+__global__ void __launch_bounds__(kWideThreads)
+sddmm_wide_kernel(Pair p1, Pair p2, const int32_t* __restrict__ ell_src,
+                  const uint8_t* __restrict__ ell_mask,
+                  float* __restrict__ out1, float* __restrict__ out2,
+                  int deg) {
+  constexpr int W = kWideThreads / 32;
+  __shared__ float red[2][W][32];  // [pair][warp][valid slot of the chunk]
   const long long row = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int j = tid; j < deg; j += blockDim.x) {
-    if (ell_mask[row * deg + j] == 0) {
-      out1[row * deg + j] = 0.f;
-      if (d2 > 0) out2[row * deg + j] = 0.f;
-    }
+  const bool dual = p2.d > 0;
+  const bool wide1 = !narrow(p1);
+  const bool wide2 = dual && !narrow(p2);
+  if (warp == W - 1) {
+    if (!wide1) narrow_row(p1, row, deg, ell_src, ell_mask, out1);
+    if (dual && !wide2) narrow_row(p2, row, deg, ell_src, ell_mask, out2);
   }
-  const int warps = blockDim.x >> 5;
-  for (int j0 = 0; j0 < deg; j0 += kMaxDeg) {
-    if (tid < 32) {
-      const int n = bsp::compact_valid_slots(ell_src, ell_mask, row, deg,
-                                             src_sh, slot_sh, j0,
-                                             j0 + kMaxDeg);
-      if (tid == 0) n_sh = n;
+  for (int j0 = 0; j0 < deg; j0 += 32) {
+    const Slots sl = read_slots(ell_src, ell_mask, row, deg, j0);
+    if (warp == 0 && j0 + lane < deg && !((sl.valid >> lane) & 1u)) {
+      if (wide1) out1[row * deg + j0 + lane] = 0.f;
+      if (wide2) out2[row * deg + j0 + lane] = 0.f;
     }
-    __syncthreads();
-    const int n = n_sh;
-
-    for (int s = 0; s < n; ++s) {
-      const long long src = src_sh[s];
-      const float p1 = bsp::warp_sum(partial_dot(a1, b1, row, src, d1, flags1));
-      float p2 = 0.f;
-      if (d2 > 0) p2 = bsp::warp_sum(partial_dot(a2, b2, row, src, d2, flags2));
-      if (lane == 0) {
-        red1[warp][s] = p1;
-        red2[warp][s] = p2;
+    const int n = __popc(sl.valid);
+    for (int k = 0; k < n; k += 2) {
+      const bool two = k + 1 < n;
+      const int s0 = __shfl_sync(0xffffffffu, sl.src, bsp::nth_set_bit(sl.valid, k));
+      const int s1 = __shfl_sync(0xffffffffu, sl.src,
+                                 two ? bsp::nth_set_bit(sl.valid, k + 1) : 0);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q == 0 ? !wide1 : !wide2) continue;
+        const Pair& p = q == 0 ? p1 : p2;
+        float x0 = lane_dot(p, row, s0, tid, kWideThreads);
+        float x1 = two ? lane_dot(p, row, s1, tid, kWideThreads) : 0.f;
+        x0 = bsp::group_sum(x0, 32);
+        x1 = bsp::group_sum(x1, 32);
+        if (lane == 0) {
+          red[q][warp][k] = x0;
+          if (two) red[q][warp][k + 1] = x1;
+        }
       }
     }
     __syncthreads();
-
-    for (int s = tid; s < n; s += blockDim.x) {
+    for (int k = tid; k < n; k += kWideThreads) {
+      const long long at = row * deg + j0 + bsp::nth_set_bit(sl.valid, k);
       float t1 = 0.f, t2 = 0.f;
-      for (int w = 0; w < warps; ++w) {
-        t1 += red1[w][s];
-        t2 += red2[w][s];
+      for (int w = 0; w < W; ++w) {
+        t1 += red[0][w][k];
+        t2 += red[1][w][k];
       }
-      out1[row * deg + slot_sh[s]] = t1;
-      if (d2 > 0) out2[row * deg + slot_sh[s]] = t2;
+      if (wide1) out1[at] = t1;
+      if (wide2) out2[at] = t2;
     }
-    __syncthreads();  // the slots and partials are rewritten by the next 128
+    __syncthreads();  // the partials are rewritten by the next 32 slots
   }
-}
-
-int lanes_for(int d, int flags) {
-  return (flags & kVec8) ? (d + 7) / 8 : d;
 }
 
 // --- the tiled form ---------------------------------------------------------
@@ -201,13 +305,6 @@ constexpr int kPitch = kK + 4;      // 9 float4s per row: an odd count, so
 constexpr int kSplit = 512;         // features per block
 constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 dots each
 constexpr int kCPitch = kT + 1;     // the block of dots in shared memory
-
-struct Pair {
-  const void* a;
-  const void* b;
-  int d;
-  int flags;
-};
 
 // One thread's share of a [kT, kK] slice of rows row0 .. row0 + nrows - 1
 // of T [., d], features k0 .. min(k0 + kK, kend) - 1, zero past either end;
@@ -499,7 +596,8 @@ extern "C" int bsp_sddmm(const void* a1, const void* b1, int d1, int flags1,
                          const void* a2, const void* b2, int d2, int flags2,
                          const int32_t* ell_src, const uint8_t* ell_mask,
                          float* out1, float* out2, int V, int deg, int Vs,
-                         int tiled, void* scratch, int device, void* stream) {
+                         int tiled, void* scratch, int device,
+                         void* stream) {
   if (V <= 0 || deg <= 0 || d1 <= 0 || d2 < 0 || Vs <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -509,12 +607,16 @@ extern "C" int bsp_sddmm(const void* a1, const void* b1, int d1, int flags1,
         Pair{a1, b1, d1, flags1}, Pair{a2, b2, d2, flags2}, ell_src, ell_mask,
         out1, out2, V, Vs, deg, scratch, static_cast<cudaStream_t>(stream)));
   }
-  int lanes = lanes_for(d1, flags1);
-  if (d2 > 0 && lanes_for(d2, flags2) > lanes) lanes = lanes_for(d2, flags2);
-  const int threads = bsp::block_threads(lanes);
-  sddmm_kernel<<<static_cast<unsigned>(V), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      a1, b1, d1, flags1, a2, b2, d2, flags2, ell_src, ell_mask, out1, out2,
-      deg);
+  const Pair p1{a1, b1, d1, flags1};
+  const Pair p2{a2, b2, d2, flags2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (narrow(p1) && (d2 == 0 || narrow(p2))) {
+    sddmm_rows_kernel<<<static_cast<unsigned>((V + kRowWarps - 1) / kRowWarps),
+                        32 * kRowWarps, 0, s>>>(p1, p2, ell_src, ell_mask,
+                                                out1, out2, V, deg);
+  } else {
+    sddmm_wide_kernel<<<static_cast<unsigned>(V), kWideThreads, 0, s>>>(
+        p1, p2, ell_src, ell_mask, out1, out2, deg);
+  }
   return static_cast<int>(cudaGetLastError());
 }

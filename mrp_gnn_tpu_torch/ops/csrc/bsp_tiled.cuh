@@ -47,15 +47,6 @@ constexpr int kXTile = kTile * kTileF;             // floats of an x tile
 constexpr int kStage = kWTile + kXTile;            // one buffer
 constexpr int kTileSmemBytes = 2 * kStage * 4;     // two buffers: 96 KB
 
-// A 16-byte cp.async from global to shared memory; !full copies nothing and
-// fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(full ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import ell_cases
 from mrp_gnn_tpu_torch.graph import build_graph_batch, radius_edges
 from mrp_gnn_tpu_torch.ops import _build, bsp
 
@@ -687,3 +688,75 @@ def test_wrappers_take_the_form_of_the_rule(dev):
         assert torch.equal(bsp.spmm_t(w, x, src, mask, V), bsp._run_spmm_t(
             _Uncounted, ((w, x, torch.float32),), src, mask, V, None,
             tiled=want_tiled)[0])
+
+
+# --- the fused forward's forms and the per-edge SDDMM on the edge cases ----
+# (tests/ell_cases.py at the card's sizes: the swarm, sources spread over
+# every node tile, duplicates, rows without an in-edge, ELL widths 8-200)
+
+
+def _case(name, dev):
+    return build_graph_batch(*ell_cases.CASES[name][1]()).to(dev)
+
+
+@pytest.mark.parametrize("form", bsp.FUSED_FORMS)
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in ell_cases.CASES
+                                  if c not in ell_cases.WIDE])
+def test_fused_forms_match_plain_bit_for_bit(dev, case, dtype, D, form):
+    """Each form of the fused forward, forced, against the plain version;
+    a second launch gives the same bits; rows without a valid slot give 0;
+    at D 1030 (4-byte loads) only the row form launches, the vector form
+    raises; the wrapper gives the bits of its rule's form."""
+    g = _case(case, dev)
+    src, mask = g.ell_src, g.ell_mask
+    q, k, v = _inputs(dev, g.max_nodes, 64, 64, D, seed=7)
+    q_s, kf = bsp._scaled(q, k)
+    v = v.to(dtype)
+    vec = bsp._fused_vec(v, v)
+    if vec == 1 and form != "row":
+        with pytest.raises(ValueError):
+            bsp.run_fused_attention(_Uncounted, q_s, kf, v, src, mask, form=form)
+        return
+    got = bsp.run_fused_attention(_Uncounted, q_s, kf, v, src, mask, form=form)
+    again = bsp.run_fused_attention(_Uncounted, q_s, kf, v, src, mask,
+                                    form=form)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, bsp.fused_attention_reference(q_s, kf, v, src,
+                                                            mask))
+    assert torch.equal(got, again)
+    empty = ~mask.any(dim=1)
+    assert bool((got[empty] == 0).all())
+    if bsp.FUSED_FORMS[bsp.fused_form(vec, dtype == torch.bfloat16)] == form:
+        assert torch.equal(got, bsp.fused_attention(q_s, kf, v, src, mask))
+
+
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("case", list(ell_cases.CASES))
+def test_per_edge_sddmm_matches_plain_bit_for_bit(dev, case, dtypes, D):
+    """The per-edge SDDMM, forced: single (d 64, narrow) and dual (d 64
+    and D: a wide pair at 8192, a scalar one at 1030) against the plain
+    versions; the dual's outputs equal two single launches bit for bit; a
+    second launch gives the same bits; masked slots give 0."""
+    g = _case(case, dev)
+    src, mask = g.ell_src, g.ell_mask
+    q, k, a, b = _inputs(dev, g.max_nodes, 64, 64, D, D, seed=9)
+    a, b = a.to(dtypes[0]), b.to(dtypes[1])
+
+    def run(*args):
+        return bsp.run_sddmm(_Uncounted, *args, tiled=False)
+
+    one = run(q, k, src, mask)
+    dual = run(q, k, src, mask, a, b)
+    two = run(a, b, src, mask)
+    torch.cuda.synchronize()
+    _assert_kernel_close(one, bsp.sddmm_reference(q, k, src, mask))
+    torch.testing.assert_close(two, bsp.sddmm_reference(a, b, src, mask),
+                               rtol=2e-5, atol=2e-5 * D ** 0.5)
+    assert torch.equal(dual[0], one) and torch.equal(dual[1], two)
+    assert torch.equal(run(q, k, src, mask), one)
+    assert bool((one[~mask] == 0).all()) and bool((two[~mask] == 0).all())
