@@ -63,7 +63,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    single = dual and reruns bit for bit; both forms of the fused forward
    (``bsp.FUSED_FORMS``, each forced) on the swarm batch and the crafted
    graph, reruns bit for bit and the wrapper bit for bit against its
-   rule's form;
+   rule's form; both forms of the SpMM (``bsp.SPMM_FORMS``, each forced)
+   and the masked max on the ell path's train batch, the crafted graphs of
+   degree 100 and 200 and a graph whose rows draw on the whole batch
+   (f32 and bf16): the forms bit for bit against each other and on rerun,
+   the wrappers against their rule's form, the max bit for bit against
+   its plain version with NaN propagated;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -81,14 +86,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of 9 to 129 robots (the form rule's crossover); both forms of the fused
    forward in turns at the attention batch (``fused_form_ab``, f32 and
    bf16) and both forms of the single SDDMM at the ell path's logits
-   (``sddmm_ab``); the Predictor's device-
+   (``sddmm_ab``); both forms of the SpMM in turns at the ell path's
+   batch (f32 and bf16), the mean and bsp2 forwards and dq's shape (D 64)
+   (``spmm_form_ab``, the rule's crossover); the Predictor's device-
    side batch latency and whole-request latency; the train step's device
    time with the kernels and with the plain ops, one whole step through
    ``train()`` (host clock, data included; numpy renderer on the attention
    path, native renderer and builder on the bsp2 path's config), peak
-   memory, and profiler breakdowns of device time by kernel, from which the
-   attention, hideg, block and ell paths are checked for the kernel bodies
-   they must run (``PATH_BODIES``, ``TRAIN_BODIES``).
+   memory, and profiler breakdowns of device time by kernel, from which
+   every path but the plain ones is checked for the kernel bodies it must
+   run (``PATH_BODIES``, ``TRAIN_BODIES``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -140,7 +147,7 @@ PORT_KERNEL_BODIES = ("fused_attention_kernel", "fused_vec_kernel",
                       "densify_kernel", "spmm_t_tiled_kernel",
                       "fused_parts_weights_kernel", "fused_parts_tiled_kernel",
                       "block_attention_f32_kernel",
-                      "block_attention_bf16_kernel")
+                      "block_attention_bf16_kernel", "spmm_vec_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
@@ -178,7 +185,7 @@ def cuda_ms(fn, reps: int = 15, inner: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(fn, n: int, tries: int = 5):
+def profiled(fn, n: int, tries: int = 10):
     """(device activity by kernel, host-clock window in microseconds) of
     ``n`` calls of ``fn`` under the profiler (CUPTI).
 
@@ -214,6 +221,7 @@ def profiled(fn, n: int, tries: int = 5):
             return kern, wall_us
         log(f"[timing] profiler trace {attempt + 1} missed device activity: "
             f"{[(e.key[:40], e.count) for e in kern]} in {n} calls")
+        time.sleep(1.0)  # let the tracer settle before the next trace
     raise AssertionError(f"the profiler missed device activity in {tries} "
                          "traces")
 
@@ -833,6 +841,119 @@ def phase_ell_kernels(dev) -> dict:
         for D_c in (1030, 4096):
             check_ell(cg.to(dev), D_c, dk, 33, dev, f"{name} D {D_c}")
     return {"inputs": x, "errs": errs}
+
+
+def spread_graph(dev):
+    """One scene of 256 nodes whose destinations draw 12 sources each
+    uniformly from every node (duplicates kept; every 7th destination has
+    no in-edge): every row's sources span the batch."""
+    rng = np.random.default_rng(61)
+    dst = np.repeat(np.arange(256), 12)
+    src = rng.integers(0, 256, size=dst.shape)
+    keep = dst % 7 != 3
+    e = np.stack([src[keep], dst[keep]])
+    return build_graph_batch([e], [256], 256, e.shape[1]).to(dev)
+
+
+def spmm_form(form: str, *args):
+    """bsp_spmm.cu in the form given, whatever bsp.spmm_form says."""
+    return bsp.run_spmm(_Uncounted, *args, form=form)
+
+
+def check_gathers(g, w, v, tag: str) -> None:
+    """Both forms of the SpMM (bsp.SPMM_FORMS), each forced, on graph ``g``
+    (f32 and bf16 values): bit-equal to each other and to a second launch,
+    within tolerance of the plain version, rows without a valid slot
+    exactly 0; with 4-byte rows the vector form raises; the wrappers
+    (bsp.spmm, ell.spmm) bit for bit against their rule's form. The masked
+    max on the same graph: bit-equal to the plain version, and a NaN among
+    a row's valid values NaN out."""
+    src, mask = g.ell_src, g.ell_mask
+    empty = ~mask.any(dim=1)
+    for dt in (torch.float32, torch.bfloat16):
+        vv = v.to(dt)
+        vec = 8 if bsp._vec8(vv) else 1
+        bf16 = dt == torch.bfloat16
+        rule = bsp.SPMM_FORMS[bsp.spmm_form(vec, vv.shape[1], bf16)]
+        want = bsp.spmm_reference(w, vv, src, mask)
+        outs = {}
+        for form in bsp.SPMM_FORMS:
+            name = f"bsp_spmm {form}, {tag} {dt}"
+            if vec == 1 and form != "row":
+                try:
+                    spmm_form(form, w, vv, src, mask)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{name}: took 4-byte rows")
+            got = spmm_form(form, w, vv, src, mask)
+            again = spmm_form(form, w, vv, src, mask)
+            torch.cuda.synchronize()
+            check_kernel_vs_plain(name, got, want, bf16)
+            if not (torch.equal(got, again) and bool((got[empty] == 0).all())):
+                raise AssertionError(f"{name}: two launches differ, or an "
+                                     "empty row is not 0")
+            outs[form] = got
+        if not all(torch.equal(o, outs["row"]) for o in outs.values()):
+            raise AssertionError(f"bsp_spmm, {tag} {dt}: the forms differ")
+        if not (torch.equal(bsp.spmm(w, vv, src, mask), outs[rule])
+                and torch.equal(ell.spmm(w, vv, src, mask), outs[rule])):
+            raise AssertionError(f"bsp_spmm, {tag} {dt}: a wrapper does not "
+                                 f"give its rule's form's ({rule}) bits")
+    check_max(g, v, tag)
+    log(f"[kernel] bsp_spmm, {tag}: both forms agree with the plain version, "
+        "with each other and on rerun, bit for bit")
+
+
+def phase_gather_kernels(dev, ek: dict, bk2: dict) -> dict:
+    """Both forms of the SpMM, and the masked max, on the ell path's first
+    train batch (D 8192), on the crafted graphs of degree 100 and 200 (D
+    1030, the scalar loads, and 4096) and on a graph whose rows draw on the
+    whole batch (D 4096); returns the operands of the SpMM's A/B: the ell
+    path's batch (f32 and bf16), the mean and bsp2 forwards and dq's shape
+    (D = dk)."""
+    x = ek["inputs"]
+    g = x["graph"]
+    check_gathers(g, x["alpha"], x["v"], "swarm train")
+    for name, cg in (("crafted", crafted_graph()),
+                     ("crafted wide", crafted_wide_graph())):
+        for D_c in (1030, 4096):
+            xc = backward_inputs(cg.to(dev), 64, D_c, 63, dev)
+            check_gathers(xc["graph"], xc["alpha"], xc["v"], f"{name} D {D_c}")
+    sg = spread_graph(dev)
+    xs = backward_inputs(sg, 64, 4096, 65, dev)
+    check_gathers(sg, xs["alpha"], xs["v"], "sources over the whole batch")
+    gm = next(iter(make_dataset(swarm_config("mean").data, "train")))[
+        "graph"].to(dev)
+    (vm,) = attention_inputs(gm.max_nodes, 1, x["v"].shape[1], 67, dev)[2:]
+    b2 = bk2["inputs"]
+    return {"ab": [
+        ("ell", g, x["alpha"], x["v"]),
+        ("ell bf16", g, x["alpha"], x["v"].to(torch.bfloat16)),
+        ("mean", gm, bsp._mean_weights(gm.ell_mask), vm),
+        ("bsp2", b2["graph"], b2["alpha"], b2["v"]),
+        ("dq", g, x["dlog"], x["kf"])]}
+
+
+def phase_spmm_form_timings(gk: dict, tag: dict) -> None:
+    """Device time per call of both forms of the SpMM in turns (the forms in
+    order, then in reverse) at the shapes phase_gather_kernels returns:
+    spmm_form_ab, the rule's crossover."""
+    rows = []
+    for name, g, w, v in gk["ab"]:
+        src, mask = g.ell_src, g.ell_mask
+        turns = {f: [] for f in bsp.SPMM_FORMS}
+        for form in bsp.SPMM_FORMS + bsp.SPMM_FORMS[::-1]:
+            turns[form].append(device_ms(
+                lambda: spmm_form(form, w, v, src, mask)))
+        rows.append({"shape": name, "V": int(src.shape[0]),
+                     "deg": int(src.shape[1]), "edges": int(mask.sum()),
+                     "D": int(v.shape[1]), "dtype": str(v.dtype),
+                     "rule": bsp.SPMM_FORMS[bsp.spmm_form(
+                         8, v.shape[1], v.dtype == torch.bfloat16)],
+                     "device_ms": turns})
+    log(json.dumps({"metric": "spmm_form_ab", "rows": rows,
+                    "timing": "device time per call (profiler); turns: the "
+                              "forms in order, then in reverse", **tag}))
 
 
 def check_weights(x: dict, tag: str) -> tuple:
@@ -1877,17 +1998,25 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> dict:
 # the fused forward's vector form on the attention path, the per-edge
 # SDDMM's narrow kernel on the ell path, the rule's tiled form of the
 # high-degree forward, the block kernel's bucket for the robot teams of the
-# block path. TRAIN_BODIES: what a path's train profile must show besides.
+# block path, the SpMM's vector form for the D 8192 sums of the ell, mean
+# and bsp2 paths, the masked max's kernel on the max path. TRAIN_BODIES:
+# what a path's train profile must show besides (bsp2: dq's SpMM at D 64
+# in the row form).
 PATH_BODIES = {
     "attention": (("fused_vec_kernel",), ("fused_attention_kernel",)),
-    "ell": (("sddmm_rows_kernel",), ("sddmm_wide_kernel",)),
+    "ell": (("sddmm_rows_kernel", "spmm_vec_kernel"),
+            ("sddmm_wide_kernel", "spmm_kernel")),
     "hideg": (("fused_parts_weights_kernel", "fused_parts_tiled_kernel"),
               ("fused_parts_kernel",)),
+    "mean": (("spmm_vec_kernel",), ("spmm_kernel",)),
+    "max": (("ell_max_kernel",), ()),
     "block": (("block_attention_f32_kernel",), ("block_attention_kernel",)),
+    "bsp2": (("weights_kernel", "spmm_vec_kernel"), ()),
 }
 
 
-TRAIN_BODIES = {"attention": ("sddmm_wide_kernel",)}
+TRAIN_BODIES = {"attention": ("sddmm_wide_kernel",),
+                "bsp2": ("spmm_kernel",)}
 
 
 def check_path_bodies(path: str, ours: dict, where: str) -> None:
@@ -1922,6 +2051,7 @@ def main() -> int:
         ek = phase_ell_kernels(dev)
         bk2 = phase_bsp2_kernels(dev)
         fk = phase_form_kernels(dev)
+        gk = phase_gather_kernels(dev, ek, bk2)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -1963,6 +2093,7 @@ def main() -> int:
         kernels += phase_block_timings(bk, tag)
         kernels += phase_ell_timings(ek, tag)
         kernels += phase_bsp2_timings(bk2, tag)
+        phase_spmm_form_timings(gk, tag)
         phase_form_timings(fk, tag)
         phase_variant_timings(kin, ek, tag)
         check_path_bodies("attention", phase_train_timings(tr["attention"],

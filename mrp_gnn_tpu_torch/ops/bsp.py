@@ -21,6 +21,9 @@ forms, chosen by :func:`tiled_form` from the ELL shape: per-edge (a block
 per row, or per source over a source-major view of the valid slots,
 :func:`source_view`) and tiled (dense blocks per pair of node tiles that
 holds a valid slot, :func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
+The fused forward and the SpMM each have a row form and a vector form,
+chosen by :func:`fused_form` and :func:`spmm_form` from the values' type
+and width.
 
 ``bsp_attention`` is the JAX package's two-kernel form: ``attention_weights``
 (``csrc/bsp_weights.cu``; ``_weights_kernel``) emits alpha, with the
@@ -77,6 +80,13 @@ _KERNEL = "bsp_fused_attention"
 # f32 values and "row" for bf16, the faster form of each type at the
 # attention path's shapes on the card (PERF.md section 6).
 FUSED_FORMS = ("row", "vec")
+# The forms of the SpMM (csrc/bsp_spmm.cu), by their index there (whose
+# note describes each): "row" (any D) and "vec" (16-byte rows only).
+# :func:`spmm_form` takes "vec" for f32 x in 16-byte rows from a width of
+# SPMM_VEC_MIN_D (one vector block's features) and "row" otherwise, the
+# faster form of each at the paths' shapes on the card (PERF.md section 6).
+SPMM_FORMS = ("row", "vec")
+SPMM_VEC_MIN_D = 2048
 # The CUDA sources of the port (csrc/<name>.cu).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
            "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
@@ -631,6 +641,24 @@ def run_sddmm(counter, a1, b1, ell_src, ell_mask, a2=None, b2=None,
     return (out1, out2) if dual else out1
 
 
+def spmm_form(vec: int, D: int, bf16: bool, form: str | None = None) -> int:
+    """The index in ``csrc/bsp_spmm.cu`` of the SpMM's form for a launch
+    with ``vec`` features per load (8: 16-byte rows, :func:`_vec8`; else
+    1), feature width D and f32 (``bf16`` False) or bf16 x: ``form`` None
+    takes "vec" for f32 x in 16-byte rows from a width of SPMM_VEC_MIN_D and
+    "row" otherwise; a name of SPMM_FORMS forces that form (the card's
+    checks and A/B). Raises ValueError for an unknown form, or the vector
+    form at vec 1."""
+    if form is None:
+        form = ("vec" if vec == 8 and not bf16 and D >= SPMM_VEC_MIN_D
+                else "row")
+    if form not in SPMM_FORMS:
+        raise ValueError(f"unknown SpMM form {form!r}; one of {SPMM_FORMS}")
+    if form != "row" and vec != 8:
+        raise ValueError(f"the {form} form needs 16-byte rows")
+    return SPMM_FORMS.index(form)
+
+
 def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
          ell_mask: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper, same contract as :func:`spmm_reference`, any ELL
@@ -643,9 +671,11 @@ def spmm(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
 spmm.launches = 0
 
 
-def run_spmm(counter, w, x, ell_src, ell_mask):
-    """Check CUDA inputs and launch ``bsp_spmm.cu``, counting the launch
-    in ``counter.launches``: :func:`spmm` without the plain path."""
+def run_spmm(counter, w, x, ell_src, ell_mask, form: str | None = None):
+    """Check CUDA inputs and launch ``bsp_spmm.cu`` in the form
+    :func:`spmm_form` gives (``form`` forces one, for the card's checks and
+    A/B of the forms), counting the launch in ``counter.launches``:
+    :func:`spmm` without the plain path."""
     _check_cuda("bsp_spmm", ell_src, ell_mask, max_deg=None, w=w, x=x)
     if w.dtype != torch.float32 or x.dtype not in _VALUE_TYPES:
         raise TypeError(f"w must be float32 and x float32 or bfloat16, got "
@@ -657,11 +687,13 @@ def run_spmm(counter, w, x, ell_src, ell_mask):
     out = torch.empty(V, x.shape[1], dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    vec = 8 if _vec8(x, out) else 1
+    bf16 = x.dtype == torch.bfloat16
     _build.run("bsp_spmm", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                w.data_ptr(), x.data_ptr(), ell_src.data_ptr(),
                ell_mask.data_ptr(), out.data_ptr(), V, deg, x.shape[1],
-               int(x.dtype == torch.bfloat16), 8 if _vec8(x, out) else 1,
+               int(bf16), vec, spmm_form(vec, x.shape[1], bf16, form),
                x.device.index, _build.stream(x))
     counter.launches += 1
     return out

@@ -147,14 +147,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 
 // Run by all 32 lanes of one warp: writes the source node and the slot
 // index of row `row`'s valid slots j, j_begin <= j < min(j_end, deg), in
-// slot order, to src_sh / slot_sh (slot_sh may be null) and returns their
-// count. Each lane reads its slot's mask and source together, so a chunk
-// of 32 slots costs one round trip. Slot order fixes the order of every
-// later sum, so a kernel gives the same bits on every launch.
+// slot order, to src_sh / slot_sh (slot_sh may be null), and with w given
+// their weights w[row, j] to w_sh, and returns their count. Each lane reads
+// its slot's mask, source and weight together, so a chunk of 32 slots
+// costs one round trip. Slot order fixes the order of every later sum, so
+// a kernel gives the same bits on every launch.
 __device__ __forceinline__ int compact_valid_slots(
     const int32_t* __restrict__ ell_src, const uint8_t* __restrict__ ell_mask,
     long long row, int deg, int32_t* src_sh, int32_t* slot_sh,
-    int j_begin = 0, int j_end = kMaxDeg) {
+    int j_begin = 0, int j_end = kMaxDeg, const float* __restrict__ w = nullptr,
+    float* w_sh = nullptr) {
   const int lane = threadIdx.x & 31;
   const int stop = j_end < deg ? j_end : deg;
   int base = 0;
@@ -163,11 +165,13 @@ __device__ __forceinline__ int compact_valid_slots(
     const bool in = j < stop;
     const bool valid = in && ell_mask[row * deg + j] != 0;
     const int32_t src = in ? ell_src[row * deg + j] : 0;
+    const float a = (w != nullptr && in) ? w[row * deg + j] : 0.f;
     const unsigned ballot = __ballot_sync(0xffffffffu, valid);
     if (valid) {
       const int at = base + __popc(ballot & ((1u << lane) - 1u));
       src_sh[at] = src;
       if (slot_sh != nullptr) slot_sh[at] = j;
+      if (w != nullptr) w_sh[at] = a;
     }
     base += __popc(ballot);
   }

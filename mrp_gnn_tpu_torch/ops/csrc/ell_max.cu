@@ -21,14 +21,21 @@
 // writes out once; at the dynamic_swarm shape (V 256, deg 32, D 8192, f32)
 // that is 16.8 MB, 0.005 ms at 3.35 TB/s; one compare per edge and feature
 // (14 MFLOP) is nothing beside it. The gathers read each value row once per
-// in-edge (about 6.6 times), mostly from the 50 MB L2.
+// in-edge (about 6.6 times), from the 50 MB L2.
 //
 // Design: one block per (destination row, chunk of the feature axis), as
-// bsp_spmm.cu. Warp 0 compacts the row's valid slots into shared memory,
-// 128 slots at a time, so a row of any width needs only 512 bytes of
-// shared memory; each thread streams its VEC features of every valid
-// source row with 16-byte loads and keeps a running max in registers, then
-// writes them once.
+// bsp_spmm.cu's row form. Warp 0 compacts the row's valid slots into shared
+// memory, reading each slot's mask and source together, 128 slots at a
+// time, so a row of any width needs only 512 bytes of shared memory; each
+// thread streams its VEC features of every valid source row with 16-byte
+// loads, two slots in flight, keeps a running max in registers and writes
+// it as soon as its row is done: a row of at most 128 slots takes no
+// barrier after its max. The other designs tried were slower at every
+// shape on the card (PERF.md section 6 gives their times): a block of 32
+// destinations that stages its tile's source window in shared memory by
+// bulk copy (a third of the L2 bytes, behind two dependent round trips),
+// bsp_spmm.cu's vector form (two 16-byte vectors a thread) and register
+// caps of either (they spilled).
 
 #include "bsp_common.cuh"
 
@@ -72,7 +79,7 @@ ell_max_kernel(const T* __restrict__ values, const int32_t* __restrict__ ell_src
     const int n = n_sh;
     total += n;
     if (active) {
-#pragma unroll 4
+#pragma unroll 2
       for (int s = 0; s < n; ++s) {
         float x[VEC];
         VecIO<T, VEC>::load(values + static_cast<long long>(src_sh[s]) * D + f0, x);
@@ -80,7 +87,7 @@ ell_max_kernel(const T* __restrict__ values, const int32_t* __restrict__ ell_src
         for (int i = 0; i < VEC; ++i) acc[i] = max_nan(acc[i], x[i]);
       }
     }
-    __syncthreads();  // src_sh is rewritten by the next chunk
+    if (j0 + kMaxDeg < deg) __syncthreads();  // the next 128 slots follow
   }
   if (!active) return;
   if (total == 0) {

@@ -14,11 +14,13 @@ batches (numpy renderer and graph builder):
 - the Predictor's batch latency (``Predictor.throughput``, CUDA events): the
   median of 5 runs of 20 batches.
 
-Paths: "mean" and "attention" (``dynamic_swarm`` with that
-``model.fusion``), "block" (``multitask_batched`` with the block kernel
-swapped in through ``edge_fusion_fn``, as chip_smoke.py does) and "hideg"
-(2 fully connected scenes of 193 robots in 512 node slots: the high-degree
-attention). A turn prints one JSON line.
+Paths: "mean", "max" and "attention" (``dynamic_swarm`` with that
+``model.fusion``), "ell" (``dynamic_swarm`` with the plan-free ELL
+attention swapped in through ``edge_fusion_fn``), "block"
+(``multitask_batched`` with the block kernel swapped in the same way; both
+as chip_smoke.py does) and "hideg" (2 fully connected scenes of 193 robots
+in 512 node slots: the high-degree attention). A turn prints one JSON
+line.
 
 ``--ab`` runs, for each path, the turns PARENT, CHANGE, CHANGE, PARENT, then
 one JSON line with each label's times. The card's name and power limit go
@@ -39,23 +41,29 @@ import time
 from pathlib import Path
 
 REPS, INNER = 5, 10
-PATHS = ("mean", "attention", "block", "hideg")
+PATHS = ("mean", "max", "attention", "ell", "block", "hideg")
+
+
+def kernel_swap(swap):
+    """An ``edge_fusion_fn`` that runs ``swap(ops)`` on the kernel backend
+    and the ops as they are otherwise (chip_smoke.kernel_swap)."""
+    from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
+
+    def edge_fusion(ops, aggregation, q, k, values, graph):
+        if ops.impl == "pallas":
+            ops = swap(ops)
+        return default_edge_fusion(ops, aggregation, q, k, values, graph)
+    return edge_fusion
 
 
 def path_config(path: str):
     """(config, edge_fusion_fn) of a path."""
     from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.ops import edge, ell
     if path == "block":
-        from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
-        from mrp_gnn_tpu_torch.ops import edge
         cfg = get_config("multitask_batched")
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"))
-
-        def swap(ops, aggregation, q, k, values, graph):
-            if ops.impl == "pallas":
-                ops = edge.with_block_kernel(ops)
-            return default_edge_fusion(ops, aggregation, q, k, values, graph)
-        return cfg, swap
+        return cfg, kernel_swap(edge.with_block_kernel)
     cfg = get_config("dynamic_swarm")
     data = dataclasses.replace(cfg.data, renderer="numpy",
                                graph_builder="numpy")
@@ -63,9 +71,10 @@ def path_config(path: str):
         data = dataclasses.replace(data, num_robots=193, scenes_per_batch=2,
                                    connectivity="full", comm_radius=0,
                                    mobility=0.0, max_nodes=512)
-    fusion = "attention" if path == "hideg" else path
+    fusion = "attention" if path in ("hideg", "ell") else path
     return cfg.replace(data=data, model=dataclasses.replace(
-        cfg.model, fusion=fusion)), None
+        cfg.model, fusion=fusion)), (kernel_swap(ell.with_ell_kernels)
+                                     if path == "ell" else None)
 
 
 def busy_ms(fn, n: int = 5) -> float:

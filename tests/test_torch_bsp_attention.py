@@ -33,6 +33,7 @@ from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
 from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
 from mrp_gnn_tpu_torch.models.transplant import load_flax_params
 from mrp_gnn_tpu_torch.ops import bsp, dispatch
+from torch_native_jax import jax_native  # noqa: F401
 
 GRAPHS = {
     "fc_2x8": lambda m: m.batch_fully_connected(2, 8),
@@ -303,6 +304,7 @@ def _jax_two_kernel(ops, *args):
     return jax_edge_fusion(ops, *args)
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_swarm_train_steps_with_the_two_kernel_form_match_jax():
     """Small dynamic_swarm train steps (16x16 images, encoder 16/32/64, 2
     scenes x 8 drifting robots, default renderer and graph builder on both

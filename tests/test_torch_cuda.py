@@ -760,3 +760,48 @@ def test_per_edge_sddmm_matches_plain_bit_for_bit(dev, case, dtypes, D):
     assert torch.equal(dual[0], one) and torch.equal(dual[1], two)
     assert torch.equal(run(q, k, src, mask), one)
     assert bool((one[~mask] == 0).all()) and bool((two[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("form", bsp.SPMM_FORMS)
+@pytest.mark.parametrize("D", [8192, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(ell_cases.CASES))
+def test_spmm_forms_and_max_match_plain_bit_for_bit(dev, case, dtype, D, form):
+    """Each form of the SpMM, forced: within tolerance of the plain version
+    and bit-equal to the row form and to a second launch; at D 1030 (4-byte
+    loads) the vector form raises; the wrappers give the bits of their
+    rule's form. The masked max on the same graph: bit-equal to the plain
+    version, NaN in giving NaN out. Rows without a valid slot give 0."""
+    from mrp_gnn_tpu_torch.ops import ell
+    g = _case(case, dev)
+    src, mask = g.ell_src, g.ell_mask
+    (x,) = _inputs(dev, g.max_nodes, D, seed=17)
+    x = x.to(dtype)
+    # attention-like weights: positive, each row's summing to 1, so the
+    # sums stay O(1) at any degree and f32 differences of order stay 2e-5
+    w = torch.where(mask, _weights(g, 18).abs(), 0.0)
+    w = w / w.sum(dim=1, keepdim=True).clamp(min=1e-30)
+    empty = ~mask.any(dim=1)
+    mx = ell.masked_max(x, src, mask)
+    r = int(mask.any(dim=1).nonzero()[0])
+    poisoned = x.clone()
+    poisoned[src[r, int(mask[r].nonzero()[0])].long(), 5] = float("nan")
+    torch.cuda.synchronize()
+    assert torch.equal(mx, ell.masked_max_reference(x, src, mask))
+    assert bool((mx[empty] == 0).all())
+    assert bool(torch.isnan(ell.masked_max(poisoned, src, mask)[r, 5]))
+    vec = 8 if bsp._vec8(x) else 1
+    if vec == 1 and form != "row":
+        with pytest.raises(ValueError):
+            bsp.run_spmm(_Uncounted, w, x, src, mask, form=form)
+        return
+    got = bsp.run_spmm(_Uncounted, w, x, src, mask, form=form)
+    again = bsp.run_spmm(_Uncounted, w, x, src, mask, form=form)
+    row = bsp.run_spmm(_Uncounted, w, x, src, mask, form="row")
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, bsp.spmm_reference(w, x, src, mask))
+    assert torch.equal(got, again) and torch.equal(got, row)
+    assert bool((got[empty] == 0).all())
+    if bsp.SPMM_FORMS[bsp.spmm_form(vec, D, dtype == torch.bfloat16)] == form:
+        assert torch.equal(bsp.spmm(w, x, src, mask), got)
+        assert torch.equal(ell.spmm(w, x, src, mask), got)

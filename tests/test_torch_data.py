@@ -13,6 +13,7 @@ from mrp_gnn_tpu_torch.config import get_config as tget_config
 from mrp_gnn_tpu_torch.data import pipeline as tp
 
 from tests.test_torch_graph import assert_graph_equal
+from torch_native_jax import jax_native  # noqa: F401
 
 
 def _cfgs(name, **data):
@@ -59,6 +60,7 @@ def test_batches_match_jax(name, split):
     assert tit.max_nodes == jit.max_nodes
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_renderer_native_not_ported():
     """The native renderer is ported: renderer "native" gives the JAX
     package's native scenes bit for bit; an unknown renderer raises."""

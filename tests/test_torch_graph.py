@@ -14,6 +14,7 @@ from mrp_gnn_tpu.data.pipeline import DynamicGraphBuilder as JDynamicBuilder
 from mrp_gnn_tpu_torch import graph as tg
 from mrp_gnn_tpu_torch.config import get_config as tget_config
 from mrp_gnn_tpu_torch.data.pipeline import DynamicGraphBuilder as TDynamicBuilder
+from torch_native_jax import jax_native  # noqa: F401
 
 ARRAY_FIELDS = ["edge_src", "edge_dst", "node_mask", "edge_mask",
                 "node_scene", "n_nodes", "n_edges", "scene_adj", "ell_src",
@@ -133,6 +134,7 @@ def test_pinned_high_degree_batch_matches_jax_without_plan():
     assert_graph_equal(got, want)
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_unported_paths_raise():
     """No builder path is left unported: a wide ELL layout builds its plan,
     and backend "native" gives the JAX package's native bits (an unknown

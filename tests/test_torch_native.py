@@ -6,7 +6,12 @@ scenes."""
 
 import contextlib
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,15 +29,16 @@ from mrp_gnn_tpu_torch.data import pipeline as tp
 from mrp_gnn_tpu_torch.data.synthetic import SceneSpec
 
 from tests.test_torch_graph import assert_graph_equal
+from torch_native_jax import jax_native  # noqa: F401
 
 ROOT = _native_loader.NATIVE_DIR.parent
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _libraries():
-    """Both packages' libraries build on this host (g++ is there)."""
+def _libraries(jax_native):
+    """Both packages' libraries build on this host (g++ is there); the JAX
+    package's in this process's own directory (tests/torch_native_jax.py)."""
     assert native.is_available() and graph_native.is_available()
-    assert jnative.is_available() and jgn.is_available()
 
 
 @pytest.mark.parametrize("spec", [
@@ -220,3 +226,48 @@ def test_library_path_follows_the_source():
     assert path.parent == _native_loader.BUILD_DIR
     assert path.name.startswith("librenderer-") and path.suffix == ".so"
     assert _native_loader.library_path("graphbuild") != path
+
+
+def test_jax_libraries_are_this_process_own(jax_native):
+    """The JAX package's loaders build and load this process's own copies,
+    outside native/, where the JAX package's own tests build theirs."""
+    for mod, name in ((jnative, "librenderer.so"), (jgn, "libgraphbuild.so")):
+        lib = Path(mod._LIB)
+        assert lib == jax_native / name and lib.exists()
+        assert (ROOT / "native") not in lib.parents
+        assert mod._lib is not None and not mod._failed
+
+
+_LOAD_AT_ONCE = textwrap.dedent("""
+    import sys, time
+    from pathlib import Path
+    from mrp_gnn_tpu_torch.data import _native_loader, native
+    _native_loader.BUILD_DIR = Path(sys.argv[1])
+    go = Path(sys.argv[2])
+    while not go.exists():
+        time.sleep(0.01)
+    lib = _native_loader.load_verified("renderer", native.LIBRARY.smoke_code)
+    sys.exit(0 if lib is not None else 3)
+""")
+
+
+def test_port_loader_builds_once_for_processes_that_load_at_once(tmp_path):
+    """Four processes load the renderer from one fresh build directory at
+    the same moment: each gets a library that passed its smoke call, and no
+    temporary file is left (each build writes a name of its own, moved into
+    place whole)."""
+    build = tmp_path / "_build"
+    go = tmp_path / "go"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen([sys.executable, "-c", _LOAD_AT_ONCE,
+                               str(build), str(go)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for _ in range(4)]
+    go.touch()
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, [o[0] for o in outs]
+    names = sorted(p.name for p in build.iterdir())
+    assert not any(n.endswith(".tmp") for n in names), names
+    assert [n for n in names if n.endswith(".so")] == [
+        _native_loader.library_path("renderer").name]
