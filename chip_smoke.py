@@ -68,7 +68,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    degree 100 and 200 and a graph whose rows draw on the whole batch
    (f32 and bf16): the forms bit for bit against each other and on rerun,
    the wrappers against their rule's form, the max bit for bit against
-   its plain version with NaN propagated;
+   its plain version with NaN propagated; both forms of the attention
+   weights (``bsp.WEIGHTS_FORMS``) and of the ELL softmax
+   (``ell.SOFTMAX_FORMS``), each forced, at the bsp2 and ell paths'
+   train batches and at ELL width 128 (dk 200): within tolerance of the
+   plain versions, masked slots and empty rows 0, rows summing to 1,
+   reruns bit for bit, the weights' rows form's logits bit for bit against
+   the per-edge SDDMM, the wrappers against their rule's form;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -77,7 +83,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the launches of every kernel per step, and against the same three steps
    with the plain ops on the card;
 6. timings (medians): each kernel beside its bound, its plain version and
-   a library yardstick; both forms of the hideg forward in turns, with the
+   a library yardstick (and, for the weights and the ELL softmax, a floor:
+   one PyTorch call with the kernel's chain of dependent round trips);
+   both forms of the weights and of the ELL softmax in turns at the bsp2
+   and ell paths' batches (``weights_form_ab``, ``softmax_form_ab``);
+   both forms of the hideg forward in turns, with the
    parts kernel and ``xp_combine`` apart; the block kernel against the
    einsum route at the benchmark's shape, forward and value gradient; the
    dual transposed SpMM against two single launches, in turns; the dual
@@ -147,7 +157,8 @@ PORT_KERNEL_BODIES = ("fused_attention_kernel", "fused_vec_kernel",
                       "densify_kernel", "spmm_t_tiled_kernel",
                       "fused_parts_weights_kernel", "fused_parts_tiled_kernel",
                       "block_attention_f32_kernel",
-                      "block_attention_bf16_kernel", "spmm_vec_kernel")
+                      "block_attention_bf16_kernel", "spmm_vec_kernel",
+                      "weights_rows_kernel", "ell_softmax_register_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
@@ -956,6 +967,152 @@ def phase_spmm_form_timings(gk: dict, tag: dict) -> None:
                               "forms in order, then in reverse", **tag}))
 
 
+def weights_form(form: str, *args, logits: bool = False):
+    """bsp_weights.cu in the form given, whatever bsp.weights_form says."""
+    return bsp.run_attention_weights(_Uncounted, *args, form=form,
+                                     logits=logits)
+
+
+def softmax_form(form: str, *args):
+    """ell_softmax.cu in the form given, whatever ell.softmax_form says."""
+    return ell.run_softmax(_Uncounted, *args, form=form)
+
+
+def check_softmax_rows(name: str, got, want, mask) -> float:
+    """A softmax kernel's output against its plain version (f32, TOL_F32),
+    masked slots and rows without a valid slot exactly 0, each valid row
+    summing to 1 within 1e-5. Returns the max abs err."""
+    err = check_kernel_vs_plain(name, got, want, False)
+    rows = mask.any(dim=1)
+    sums = float((got[rows].sum(-1) - 1).abs().max()) if bool(rows.any()) else 0.0
+    if not (bool((got[~mask] == 0).all()) and bool((got[~rows] == 0).all())
+            and sums <= 1e-5):
+        raise AssertionError(f"{name}: a masked slot or an empty row is not "
+                             f"0, or a row sums to 1 only within {sums:.3g}")
+    return err
+
+
+def check_weights_forms(q_s, kf, g, tag: str) -> None:
+    """Both forms of the attention weights (bsp.WEIGHTS_FORMS), each
+    forced, on graph ``g``: within tolerance of the plain version
+    (check_softmax_rows), bit for bit on rerun; the rows form's logits bit
+    for bit against the per-edge SDDMM on the same (q_s, k); the wrapper
+    bit for bit against its rule's form."""
+    src, mask = g.ell_src, g.ell_mask
+    want = bsp.attention_weights_reference(q_s, kf, src, mask)
+    rule = bsp.WEIGHTS_FORMS[bsp.weights_form(q_s.shape[1],
+                                              bsp._vec8(q_s, kf))]
+    outs = {}
+    for form in bsp.WEIGHTS_FORMS:
+        name = f"bsp_weights {form}, {tag}"
+        got = weights_form(form, q_s, kf, src, mask)
+        again = weights_form(form, q_s, kf, src, mask)
+        torch.cuda.synchronize()
+        check_softmax_rows(name, got, want, mask)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        outs[form] = got
+    alpha, lo = weights_form("rows", q_s, kf, src, mask, logits=True)
+    if not (torch.equal(alpha, outs["rows"]) and torch.equal(
+            lo, sddmm_form(False, q_s, kf, src, mask))):
+        raise AssertionError(f"bsp_weights rows, {tag}: its logits are not "
+                             "the per-edge SDDMM's bits")
+    if not torch.equal(bsp.attention_weights(q_s, kf, src, mask), outs[rule]):
+        raise AssertionError(f"bsp_weights, {tag}: the wrapper does not give "
+                             f"its rule's form's ({rule}) bits")
+    log(f"[kernel] bsp_weights, {tag}: both forms agree with the plain "
+        "version and on rerun; the rows form's logits are bsp_sddmm's bits")
+
+
+def check_softmax_forms(logits, mask, tag: str) -> None:
+    """Both forms of the ELL softmax (ell.SOFTMAX_FORMS), each forced, on
+    ``logits``: within tolerance of the plain version (check_softmax_rows),
+    bit for bit on rerun; the wrapper bit for bit against its rule's
+    form."""
+    want = bsp.masked_softmax(logits, mask)
+    rule = ell.SOFTMAX_FORMS[ell.softmax_form(logits.shape[1])]
+    outs = {}
+    for form in ell.SOFTMAX_FORMS:
+        name = f"ell_softmax {form}, {tag}"
+        got = softmax_form(form, logits, mask)
+        again = softmax_form(form, logits, mask)
+        torch.cuda.synchronize()
+        check_softmax_rows(name, got, want, mask)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        outs[form] = got
+    if not torch.equal(ell.softmax(logits, mask), outs[rule]):
+        raise AssertionError(f"ell_softmax, {tag}: the wrapper does not give "
+                             f"its rule's form's ({rule}) bits")
+
+
+def wide_softmax_graph(dev):
+    """One scene of 200 nodes where node 0 has 128 in-edges cycling over
+    the others, nodes 1 .. 9 one each and the rest none: an ELL width of
+    128, the most both softmax kernels' fast forms take."""
+    src0 = 1 + np.arange(128) % 199
+    e = np.concatenate([np.stack([src0, np.zeros(128, np.int64)]),
+                        np.stack([np.arange(2, 11), np.arange(1, 10)])], axis=1)
+    return build_graph_batch([e], [200], 208, e.shape[1]).to(dev)
+
+
+def phase_softmax_form_kernels(dev, ek: dict, bk2: dict) -> dict:
+    """Both forms of the attention weights at the bsp2 path's first train
+    batch (dk 64) and of the ELL softmax at the ell path's logits, and both
+    kernels at one wide shape (ELL width 128, dk 200; the softmax on logits
+    spread 8 wide); returns the A/B's operands."""
+    b = bk2["inputs"]
+    check_weights_forms(b["q_s"], b["kf"], b["graph"], "bsp2 train")
+    x = ek["inputs"]
+    g = x["graph"]
+    logits = bsp.sddmm_reference(x["q_s"], x["kf"], g.ell_src, g.ell_mask)
+    check_softmax_forms(logits, g.ell_mask, "ell train logits")
+    gw = wide_softmax_graph(dev)
+    xw = backward_inputs(gw, 200, 64, 71, dev)
+    check_weights_forms(xw["q_s"], xw["kf"], gw, "deg 128, dk 200")
+    spread = torch.from_numpy(np.random.default_rng(72).normal(
+        size=tuple(gw.ell_src.shape)).astype(np.float32) * 8).to(dev)
+    check_softmax_forms(spread, gw.ell_mask, "deg 128, logits spread 8 wide")
+    return {"weights": b, "softmax": (logits, g.ell_mask)}
+
+
+def phase_softmax_form_timings(sk: dict, tag: dict) -> None:
+    """Device time per call of both forms of the attention weights at the
+    bsp2 path's batch (weights_form_ab, with the per-edge SDDMM of the same
+    logits beside them) and of the ELL softmax at the ell path's logits
+    (softmax_form_ab), in turns: the forms in order, then in reverse."""
+    b = sk["weights"]
+    g = b["graph"]
+    src, mask = g.ell_src, g.ell_mask
+    args = (b["q_s"], b["kf"], src, mask)
+    turns = {f: [] for f in bsp.WEIGHTS_FORMS}
+    for form in bsp.WEIGHTS_FORMS + bsp.WEIGHTS_FORMS[::-1]:
+        turns[form].append(device_ms(lambda: weights_form(form, *args)))
+    log(json.dumps({"metric": "weights_form_ab", "V": int(src.shape[0]),
+                    "deg": int(src.shape[1]), "edges": int(mask.sum()),
+                    "dk": int(b["q_s"].shape[1]),
+                    "rule": bsp.WEIGHTS_FORMS[bsp.weights_form(
+                        b["q_s"].shape[1], bsp._vec8(b["q_s"], b["kf"]))],
+                    "device_ms": turns,
+                    "ell_sddmm_ms": device_ms(lambda: ell.sddmm(*args)),
+                    "timing": "device time per call (profiler), f32; turns: "
+                              "the forms in order, then in reverse; "
+                              "ell_sddmm_ms: the per-edge SDDMM of the same "
+                              "logits, after the turns", **tag}))
+    logits, lmask = sk["softmax"]
+    turns = {f: [] for f in ell.SOFTMAX_FORMS}
+    for form in ell.SOFTMAX_FORMS + ell.SOFTMAX_FORMS[::-1]:
+        turns[form].append(device_ms(lambda: softmax_form(form, logits,
+                                                          lmask)))
+    log(json.dumps({"metric": "softmax_form_ab", "V": int(lmask.shape[0]),
+                    "deg": int(lmask.shape[1]), "edges": int(lmask.sum()),
+                    "rule": ell.SOFTMAX_FORMS[ell.softmax_form(
+                        lmask.shape[1])],
+                    "device_ms": turns,
+                    "timing": "device time per call (profiler), f32; turns: "
+                              "the forms in order, then in reverse", **tag}))
+
+
 def check_weights(x: dict, tag: str) -> tuple:
     """The weights kernel against its plain version on the operands of
     ``backward_inputs`` (f32; masked slots and rows without a valid slot
@@ -1522,28 +1679,33 @@ def predictor_timings(serve: dict, tag: dict, path: str) -> dict:
 
 
 def time_kernel(name, src_file, replaces, shape, fn, plain, library,
-                lib_name, bound, err, tag) -> dict:
+                lib_name, bound, err, tag, floor=None) -> dict:
     """One kernel at one shape: device time per call (profiler) of the
     kernel, its plain version and the library yardstick, back-to-back CUDA
-    events beside them, and its bound. Returns its entry of the kernels
-    line."""
+    events beside them, and its bound. ``floor`` (fn, name): one PyTorch
+    call with the kernel's chain of dependent round trips on the same
+    tensors, set up outside the clock, whose device time is the kernel's
+    floor_ms. Returns its entry of the kernels line."""
     ms, plain_ms, library_ms = (device_ms(f) for f in (fn, plain, library))
     call_ms = {"kernel": cuda_ms(fn), "plain": cuda_ms(plain, reps=7),
                "library": cuda_ms(library)}
     b_ms, b_by, n_bytes, flops = bound
+    extra = ({} if floor is None else
+             {"floor_ms": device_ms(floor[0]), "floor": floor[1]})
     log(json.dumps({"metric": "kernel_time", "kernel": name,
                     "shape": shape, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library": lib_name,
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                    "flops": flops, "l2": "warm (back-to-back launches)",
-                    "timing": "ms, plain_ms, library_ms: device time per "
-                              "call (profiler); call_ms: back-to-back "
-                              "calls (CUDA events)",
+                    "flops": flops, **extra,
+                    "l2": "warm (back-to-back launches)",
+                    "timing": "ms, plain_ms, library_ms, floor_ms: device "
+                              "time per call (profiler); call_ms: "
+                              "back-to-back calls (CUDA events)",
                     "call_ms": call_ms, **tag}))
     return {"name": name, "route": "cuda", "source": src_file,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
 
 
 def dense_mask(g) -> torch.Tensor:
@@ -1713,8 +1875,10 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
     pattern = _csr(rows, cols, torch.ones(edges, device=src.device), (V, V))
     kT = kf.t().contiguous()
     a_csr = _csr(rows, cols, alpha[mask], (V, V))
+    copied = torch.empty_like(logits)
     out = []
-    for name, src_file, replaces, shp, fn, plain, lib, lib_name, bound in (
+    for (name, src_file, replaces, shp, fn, plain, lib, lib_name, bound,
+         floor) in (
             ("ell_sddmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_sddmm.cu",
              "mrp_gnn_tpu/ops/pallas_ell.py:268",
              {"d": dk, "form": rule_form(g)},
@@ -1722,7 +1886,8 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
              lambda: bsp.sddmm_reference(q_s, kf, src, mask),
              lambda: torch.sparse.sampled_addmm(pattern, q_s, kT, beta=0.0),
              "torch.sparse.sampled_addmm on the deduplicated [V, V] pattern",
-             bound_ms((q_s, kf, src, mask), (logits,), 2 * edges * dk)),
+             bound_ms((q_s, kf, src, mask), (logits,), 2 * edges * dk),
+             None),
             ("ell_softmax", "mrp_gnn_tpu_torch/ops/csrc/ell_softmax.cu",
              "mrp_gnn_tpu/ops/pallas_ell.py:355", {},
              lambda: ell.softmax(logits, mask),
@@ -1732,17 +1897,20 @@ def phase_ell_timings(ek: dict, tag: dict) -> list:
              "Tensor.masked_fill(-1e30), torch.softmax, Tensor.any and "
              "torch.where (0 on a row without a valid slot): four calls; no "
              "single call computes the kernel's function",
-             bound_ms((logits, mask), (logits,), 5 * V * deg)),
+             bound_ms((logits, mask), (logits,), 5 * V * deg),
+             (lambda: copied.copy_(logits),
+              "Tensor.copy_ of the [V, deg] f32 logits (one read, one "
+              "write)")),
             ("ell_spmm", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm.cu",
              "mrp_gnn_tpu/ops/pallas_ell.py:47", {"D": D},
              lambda: ell.spmm(alpha, v, src, mask),
              lambda: bsp.spmm_reference(alpha, v, src, mask),
              lambda: torch.sparse.mm(a_csr, v),
              "torch.sparse.mm(CSR of the weights, values)",
-             bound_ms((alpha, v, src, mask), (v,), 2 * edges * D))):
+             bound_ms((alpha, v, src, mask), (v,), 2 * edges * D), None)):
         out.append(time_kernel(name, src_file, replaces, {**shape, **shp}, fn,
                                plain, lib, lib_name, bound, ek["errs"][name],
-                               tag))
+                               tag, floor))
     return out
 
 
@@ -1766,6 +1934,7 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
     kT = kf.t().contiguous()
     filled = bsp.sddmm_reference(q_s, kf, src, mask).masked_fill(~mask,
                                                                  bsp._NEG)
+    first = src.long() * dk  # each slot's key row start, for the floor
     out = [time_kernel(
         "bsp_weights", "mrp_gnn_tpu_torch/ops/csrc/bsp_weights.cu",
         "mrp_gnn_tpu/ops/pallas_bsp.py:118",
@@ -1777,7 +1946,10 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
         "torch.sparse.sampled_addmm on the deduplicated [V, V] pattern, then "
         "torch.softmax of the [V, deg] logits filled with -1e30 (two calls)",
         bound_ms((q_s, kf, src, mask), (alpha,), edges * (2 * dk + 1)),
-        bk2["errs"]["bsp_weights"], tag)]
+        bk2["errs"]["bsp_weights"], tag,
+        (lambda: torch.take(kf, first),
+         "torch.take(k, ell_src * dk) (an index read, a dependent gather of "
+         "each slot's key row, a [V, deg] write)"))]
 
     def operands(xx):
         b = backward_view(xx)
@@ -1999,19 +2171,21 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> dict:
 # SDDMM's narrow kernel on the ell path, the rule's tiled form of the
 # high-degree forward, the block kernel's bucket for the robot teams of the
 # block path, the SpMM's vector form for the D 8192 sums of the ell, mean
-# and bsp2 paths, the masked max's kernel on the max path. TRAIN_BODIES:
-# what a path's train profile must show besides (bsp2: dq's SpMM at D 64
-# in the row form).
+# and bsp2 paths, the masked max's kernel on the max path, the softmax's
+# register form on the ell path and the weights' rows form on bsp2.
+# TRAIN_BODIES: what a path's train profile must show besides (bsp2: dq's
+# SpMM at D 64 in the row form).
 PATH_BODIES = {
     "attention": (("fused_vec_kernel",), ("fused_attention_kernel",)),
-    "ell": (("sddmm_rows_kernel", "spmm_vec_kernel"),
-            ("sddmm_wide_kernel", "spmm_kernel")),
+    "ell": (("sddmm_rows_kernel", "ell_softmax_register_kernel",
+             "spmm_vec_kernel"),
+            ("sddmm_wide_kernel", "ell_softmax_kernel", "spmm_kernel")),
     "hideg": (("fused_parts_weights_kernel", "fused_parts_tiled_kernel"),
               ("fused_parts_kernel",)),
     "mean": (("spmm_vec_kernel",), ("spmm_kernel",)),
     "max": (("ell_max_kernel",), ()),
     "block": (("block_attention_f32_kernel",), ("block_attention_kernel",)),
-    "bsp2": (("weights_kernel", "spmm_vec_kernel"), ()),
+    "bsp2": (("weights_rows_kernel", "spmm_vec_kernel"), ("weights_kernel",)),
 }
 
 
@@ -2052,6 +2226,7 @@ def main() -> int:
         bk2 = phase_bsp2_kernels(dev)
         fk = phase_form_kernels(dev)
         gk = phase_gather_kernels(dev, ek, bk2)
+        sk = phase_softmax_form_kernels(dev, ek, bk2)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -2094,6 +2269,7 @@ def main() -> int:
         kernels += phase_ell_timings(ek, tag)
         kernels += phase_bsp2_timings(bk2, tag)
         phase_spmm_form_timings(gk, tag)
+        phase_softmax_form_timings(sk, tag)
         phase_form_timings(fk, tag)
         phase_variant_timings(kin, ek, tag)
         check_path_bodies("attention", phase_train_timings(tr["attention"],

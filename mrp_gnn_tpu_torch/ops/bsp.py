@@ -23,7 +23,8 @@ per row, or per source over a source-major view of the valid slots,
 holds a valid slot, :func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
 The fused forward and the SpMM each have a row form and a vector form,
 chosen by :func:`fused_form` and :func:`spmm_form` from the values' type
-and width.
+and width; the attention weights a block and a warp-per-row form, chosen
+by :func:`weights_form` from dk and the rows' alignment.
 
 ``bsp_attention`` is the JAX package's two-kernel form: ``attention_weights``
 (``csrc/bsp_weights.cu``; ``_weights_kernel``) emits alpha, with the
@@ -87,6 +88,12 @@ FUSED_FORMS = ("row", "vec")
 # faster form of each at the paths' shapes on the card (PERF.md section 6).
 SPMM_FORMS = ("row", "vec")
 SPMM_VEC_MIN_D = 2048
+# The forms of the attention weights (csrc/bsp_weights.cu), by their index
+# there (whose note describes each): "block" (a block per row, any dk) and
+# "rows" (a warp per row; dk a multiple of 8 in 16-byte rows).
+# :func:`weights_form` takes "rows" wherever it runs, the faster form at the
+# bsp2 path's shape on the card (PERF.md section 6).
+WEIGHTS_FORMS = ("block", "rows")
 # The CUDA sources of the port (csrc/<name>.cu).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
            "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
@@ -530,15 +537,48 @@ def run_expanded_forward(counter, q_s, k, values, src_x, mask_x, rows: int,
     return out
 
 
+def weights_form(dk: int, aligned: bool, form: str | None = None) -> int:
+    """The index in ``csrc/bsp_weights.cu`` of the attention weights' form
+    for query and key rows of width dk, 16-byte aligned or not (``aligned``
+    as :func:`_vec8` gives it): ``form`` None takes "rows" where dk is a
+    multiple of 8 up to MAX_DK in aligned rows, "block" otherwise; a name of
+    WEIGHTS_FORMS forces that form (the card's checks and A/B). Raises
+    ValueError for an unknown form, or the rows form where it does not
+    run."""
+    rows = aligned and dk % 8 == 0 and 0 < dk <= MAX_DK
+    if form is None:
+        form = "rows" if rows else "block"
+    if form not in WEIGHTS_FORMS:
+        raise ValueError(f"unknown weights form {form!r}; one of "
+                         f"{WEIGHTS_FORMS}")
+    if form == "rows" and not rows:
+        raise ValueError(f"the rows form needs dk a multiple of 8 up to "
+                         f"{MAX_DK} in 16-byte rows, got dk {dk}"
+                         f"{'' if aligned else ', unaligned'}")
+    return WEIGHTS_FORMS.index(form)
+
+
 def attention_weights(q_s: torch.Tensor, k: torch.Tensor,
                       ell_src: torch.Tensor,
                       ell_mask: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper, same contract as :func:`attention_weights_reference`
     (``csrc/bsp_weights.cu``, the TPU's ``_weights_kernel``), for ELL
     widths up to MAX_DEGREE and dk up to MAX_DK. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel in the form :func:`weights_form`
+    gives, or raise."""
     if k.device.type == "cpu":
         return attention_weights_reference(q_s, k, ell_src, ell_mask)
+    return run_attention_weights(attention_weights, q_s, k, ell_src, ell_mask)
+
+
+def run_attention_weights(counter, q_s, k, ell_src, ell_mask,
+                          form: str | None = None, logits: bool = False):
+    """Check CUDA inputs and launch ``csrc/bsp_weights.cu`` in the form
+    :func:`weights_form` gives (``form`` forces one, for the card's checks
+    and A/B of the forms), counting the launch in ``counter.launches``:
+    :func:`attention_weights` without the plain path. ``logits`` True (the
+    rows form only; a hook of the card's tests) returns (alpha, the logits
+    the kernel computed, f32 [V, deg] with 0 on masked slots)."""
     _check_cuda("bsp_weights", ell_src, ell_mask, q_s=q_s, k=k)
     if q_s.dtype != torch.float32 or k.dtype != torch.float32:
         raise TypeError("q_s and k must be float32")
@@ -547,18 +587,23 @@ def attention_weights(q_s: torch.Tensor, k: torch.Tensor,
             or q_s.shape[0] != V):
         raise ValueError(f"shape mismatch: q_s {tuple(q_s.shape)}, k "
                          f"{tuple(k.shape)}, ell_src {tuple(ell_src.shape)}")
-    if not 0 < q_s.shape[1] <= MAX_DK:
-        raise ValueError(f"kernel takes 0 < dk <= {MAX_DK}, got {q_s.shape[1]}")
+    dk = q_s.shape[1]
+    if not 0 < dk <= MAX_DK:
+        raise ValueError(f"kernel takes 0 < dk <= {MAX_DK}, got {dk}")
+    index = weights_form(dk, _vec8(q_s, k), form)
+    if logits and WEIGHTS_FORMS[index] != "rows":
+        raise ValueError("only the rows form returns its logits")
     alpha = torch.empty(V, deg, dtype=torch.float32, device=k.device)
-    if alpha.numel() == 0:
-        return alpha
-    _build.run("bsp_weights", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_void_p],
-               q_s.data_ptr(), k.data_ptr(), ell_src.data_ptr(),
-               ell_mask.data_ptr(), alpha.data_ptr(), V, deg, q_s.shape[1],
-               k.device.index, _build.stream(k))
-    attention_weights.launches += 1
-    return alpha
+    lo = torch.empty_like(alpha) if logits else None
+    if alpha.numel():
+        _build.run("bsp_weights", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p],
+                   q_s.data_ptr(), k.data_ptr(), ell_src.data_ptr(),
+                   ell_mask.data_ptr(), alpha.data_ptr(),
+                   lo.data_ptr() if logits else None, V, deg, dk, index,
+                   k.device.index, _build.stream(k))
+        counter.launches += 1
+    return (alpha, lo) if logits else alpha
 
 
 attention_weights.launches = 0

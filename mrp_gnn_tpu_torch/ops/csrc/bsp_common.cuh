@@ -2,9 +2,10 @@
 // bsp_fused_parts.cu, bsp_weights.cu, bsp_sddmm.cu, bsp_spmm.cu,
 // bsp_spmm_t.cu, ell_max.cu, ell_softmax.cu, block_attention.cu): 16-byte
 // vector loads and stores with f32 arithmetic, warp and lane-group
-// reductions, 16-byte cp.async staging, the compaction of a row's valid
-// slots, a row's softmax weights, the per-row body of the fused attention
-// (the parts kernel's) and the node tile of the tiled forms.
+// reductions, the chain of a narrow edge dot (the per-edge SDDMM's and the
+// weights' rows form), 16-byte cp.async staging, the compaction of a row's
+// valid slots, a row's softmax weights, the per-row body of the fused
+// attention (the parts kernel's) and the node tile of the tiled forms.
 
 #pragma once
 
@@ -134,6 +135,35 @@ __device__ __forceinline__ int nth_set_bit(unsigned bits, int k) {
     }
   }
   return pos;
+}
+
+// The lanes of one group of g lanes take the max of x, as group_sum.
+__device__ __forceinline__ float group_max(float x, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// --- edge dots over ELL slots (bsp_sddmm.cu, bsp_weights.cu) ---------------
+
+constexpr int kVec8 = 4;      // operand flag: 16-byte loads (d % 8 == 0,
+                              // aligned rows)
+constexpr int kRowWarps = 4;  // rows per block of the warp-per-row kernels
+
+// Loads of one dot: 16 bytes (8 elements) where the pair allows, else one
+// element. A pair is narrow when a group of at most 32 lanes covers its
+// dot with one load each (d <= 256 with 16-byte loads, d <= 32 without).
+__host__ __device__ __forceinline__ int dot_loads(int d, int flags) {
+  return (flags & kVec8) ? (d + 7) / 8 : d;
+}
+
+// acc + <xa, xb> over 8 elements, one chain of FMAs in order: the chain of
+// each 16-byte load of a narrow dot (bsp_sddmm.cu, lane_dot), which the
+// weights kernel repeats so that its logits have the SDDMM's bits.
+__device__ __forceinline__ float fma8(const float* xa, const float* xb,
+                                      float acc) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc = fmaf(xa[i], xb[i], acc);
+  return acc;
 }
 
 // A 16-byte cp.async from global to shared memory; !full copies nothing and

@@ -92,12 +92,12 @@
 
 namespace {
 
+using bsp::kRowWarps;
+using bsp::kVec8;
 using bsp::VecIO;
 
 constexpr int kABf16 = 1;  // flags of one operand pair
 constexpr int kBBf16 = 2;
-constexpr int kVec8 = 4;   // 16-byte loads: d % 8 == 0, aligned rows
-constexpr int kRowWarps = 4;       // rows per block when every pair is narrow
 constexpr int kWideThreads = 256;  // a block per row when some pair is wide
 constexpr int kBatch = 4;  // passes of a warp's groups in flight together
 
@@ -121,15 +121,8 @@ struct Pair {
   int flags;
 };
 
-// Loads of one dot: 16 bytes (8 elements) where the pair allows, else one
-// element. A pair is narrow when a group of at most 32 lanes covers its
-// dot with one load each (d <= 256 with 16-byte loads, d <= 32 without).
-__host__ __device__ __forceinline__ int dot_loads(int d, int flags) {
-  return (flags & kVec8) ? (d + 7) / 8 : d;
-}
-
 __host__ __device__ __forceinline__ bool narrow(const Pair& p) {
-  return dot_loads(p.d, p.flags) <= 32;
+  return bsp::dot_loads(p.d, p.flags) <= 32;
 }
 
 // One chain of FMAs over the elements of load t, t + G, t + 2G, ... of
@@ -149,8 +142,7 @@ __device__ __forceinline__ float lane_dot(const Pair& p, long long arow,
       float xa[8], xb[8];
       load8(p.a, abf, ia + f, xa);
       load8(p.b, bbf, ib + f, xb);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc = fmaf(xa[i], xb[i], acc);
+      acc = bsp::fma8(xa, xb, acc);
     }
   } else {
     for (int f = t; f < p.d; f += G)
@@ -186,7 +178,7 @@ __device__ void narrow_row(const Pair& p, long long row, int deg,
                            const uint8_t* __restrict__ ell_mask,
                            float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
-  const int G = bsp::group_lanes(dot_loads(p.d, p.flags));
+  const int G = bsp::group_lanes(bsp::dot_loads(p.d, p.flags));
   const int S = 32 / G;
   const int grp = lane / G;
   const int t = lane & (G - 1);

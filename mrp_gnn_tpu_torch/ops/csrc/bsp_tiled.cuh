@@ -13,8 +13,8 @@
 namespace bsp {
 
 constexpr int kXBf16 = 1;    // flags of one operand pair: x is bf16,
-constexpr int kOutBf16 = 2;  // out is bf16,
-constexpr int kVec8 = 4;     // 16-byte loads (D % 8 == 0, aligned rows)
+constexpr int kOutBf16 = 2;  // out is bf16, kVec8 (bsp_common.cuh): 16-byte
+                             // loads (D % 8 == 0, aligned rows)
 
 template <int VEC>
 __device__ __forceinline__ void load_row(const void* p, bool bf16,

@@ -10,7 +10,8 @@ its plain version on CPU tensors, and counting each launch in
   TPU's per-row ``_spmm_kernel``;
 - ``sddmm``: the single form of ``csrc/bsp_sddmm.cu``, replacing its
   ``_sddmm_kernel``;
-- ``softmax``: ``csrc/ell_softmax.cu``, replacing its ``_softmax_kernel``.
+- ``softmax``: ``csrc/ell_softmax.cu``, replacing its ``_softmax_kernel``
+  (a loop and a register form, :func:`softmax_form`).
 
 The entries :func:`ell_max`, :func:`ell_spmm`, :func:`ell_sddmm` and
 :func:`ell_softmax` add the gradients of the JAX package's custom vjps, in
@@ -33,6 +34,14 @@ from mrp_gnn_tpu_torch.ops import _build, bsp
 
 _NEG = -1e30
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
+# The forms of the softmax (csrc/ell_softmax.cu), by their index there
+# (whose note describes each): "loop" (a warp per row, any width) and
+# "register" (a lane group per row, the row in registers; widths up to
+# REGISTER_MAX_DEG). :func:`softmax_form` takes "register" wherever it
+# runs, the faster form at the ell path's shape on the card (PERF.md
+# section 6).
+SOFTMAX_FORMS = ("loop", "register")
+REGISTER_MAX_DEG = 128
 
 
 def masked_max_reference(values: torch.Tensor, ell_src: torch.Tensor,
@@ -162,12 +171,37 @@ def sddmm(q: torch.Tensor, k: torch.Tensor, ell_src: torch.Tensor,
 sddmm.launches = 0
 
 
+def softmax_form(deg: int, form: str | None = None) -> int:
+    """The index in ``csrc/ell_softmax.cu`` of the softmax's form for an
+    ELL width deg: ``form`` None takes "register" up to REGISTER_MAX_DEG,
+    "loop" past it; a name of SOFTMAX_FORMS forces that form (the card's
+    checks and A/B). Raises ValueError for an unknown form, or the register
+    form past REGISTER_MAX_DEG."""
+    if form is None:
+        form = "register" if deg <= REGISTER_MAX_DEG else "loop"
+    if form not in SOFTMAX_FORMS:
+        raise ValueError(f"unknown softmax form {form!r}; one of "
+                         f"{SOFTMAX_FORMS}")
+    if form == "register" and deg > REGISTER_MAX_DEG:
+        raise ValueError(f"the register form takes widths up to "
+                         f"{REGISTER_MAX_DEG}, got {deg}")
+    return SOFTMAX_FORMS.index(form)
+
+
 def softmax(logits: torch.Tensor, ell_mask: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper of the masked row softmax, same contract as
     ``bsp.masked_softmax`` (f32 [V, deg], any width; a row with no valid
     slot gives 0)."""
     if logits.device.type == "cpu":
         return bsp.masked_softmax(logits, ell_mask)
+    return run_softmax(softmax, logits, ell_mask)
+
+
+def run_softmax(counter, logits, ell_mask, form: str | None = None):
+    """Check CUDA inputs and launch ``csrc/ell_softmax.cu`` in the form
+    :func:`softmax_form` gives (``form`` forces one, for the card's checks
+    and A/B of the forms), counting the launch in ``counter.launches``:
+    :func:`softmax` without the plain path."""
     dev = logits.device
     if dev.type != "cuda":
         raise RuntimeError(f"no ell_softmax kernel for {dev}")
@@ -184,10 +218,11 @@ def softmax(logits: torch.Tensor, ell_mask: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     V, deg = logits.shape
-    _build.run("ell_softmax", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    _build.run("ell_softmax", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                + [ctypes.c_void_p], logits.data_ptr(), ell_mask.data_ptr(),
-               out.data_ptr(), V, deg, dev.index, _build.stream(logits))
-    softmax.launches += 1
+               out.data_ptr(), V, deg, softmax_form(deg, form),
+               dev.index, _build.stream(logits))
+    counter.launches += 1
     return out
 
 

@@ -6,21 +6,30 @@ checkouts on one CUDA card, each turn in a process of its own.
 
 One turn (``--root``) imports ``mrp_gnn_tpu_torch`` from ``DIR``, builds its
 CUDA kernels and, with random seeded weights, times on the path's first
-batches (numpy renderer and graph builder):
+batches (numpy renderer and graph builder, but for bsp2):
 
 - the train step (``train.make_train_step``) with CUDA events: the median
   over 5 repetitions of the mean of 10 back-to-back steps, after 3 warm-up
   steps; and its device busy time per step (profiler, 5 steps after 5);
 - the Predictor's batch latency (``Predictor.throughput``, CUDA events): the
-  median of 5 runs of 20 batches.
+  median of 5 runs of 20 batches; and its device busy time per request
+  (profiler, 5 device-side forwards of one eval batch after 5, the images
+  already on the card, so no host-device copy is counted);
+- on the bsp2 and ell paths, the device time per call (profiler, 30 calls
+  after 30) of the path's softmax kernel on the first train batch's ELL
+  lists, with seeded random operands: the attention weights
+  (``bsp.attention_weights``, dk the model's) on bsp2, the ELL softmax
+  (``ell.softmax``) on ell.
 
 Paths: "mean", "max" and "attention" (``dynamic_swarm`` with that
 ``model.fusion``), "ell" (``dynamic_swarm`` with the plan-free ELL
 attention swapped in through ``edge_fusion_fn``), "block"
 (``multitask_batched`` with the block kernel swapped in the same way; both
-as chip_smoke.py does) and "hideg" (2 fully connected scenes of 193 robots
-in 512 node slots: the high-degree attention). A turn prints one JSON
-line.
+as chip_smoke.py does), "hideg" (2 fully connected scenes of 193 robots
+in 512 node slots: the high-degree attention) and "bsp2"
+(``dynamic_swarm`` on the native renderer and graph builder, with the
+two-kernel attention, ``bsp.with_bsp_attention``, swapped in, as
+chip_smoke.py's bsp2 path). A turn prints one JSON line.
 
 ``--ab`` runs, for each path, the turns PARENT, CHANGE, CHANGE, PARENT, then
 one JSON line with each label's times. The card's name and power limit go
@@ -40,8 +49,10 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPS, INNER = 5, 10
-PATHS = ("mean", "max", "attention", "ell", "block", "hideg")
+PATHS = ("mean", "max", "attention", "ell", "block", "hideg", "bsp2")
 
 
 def kernel_swap(swap):
@@ -59,12 +70,16 @@ def kernel_swap(swap):
 def path_config(path: str):
     """(config, edge_fusion_fn) of a path."""
     from mrp_gnn_tpu_torch.config import get_config
-    from mrp_gnn_tpu_torch.ops import edge, ell
+    from mrp_gnn_tpu_torch.ops import bsp, edge, ell
     if path == "block":
         cfg = get_config("multitask_batched")
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, renderer="numpy"))
         return cfg, kernel_swap(edge.with_block_kernel)
     cfg = get_config("dynamic_swarm")
+    if path == "bsp2":  # "native" raises where the libraries do not build
+        return cfg.replace(data=dataclasses.replace(
+            cfg.data, renderer="native", graph_builder="native")), \
+            kernel_swap(bsp.with_bsp_attention)
     data = dataclasses.replace(cfg.data, renderer="numpy",
                                graph_builder="numpy")
     if path == "hideg":
@@ -102,7 +117,7 @@ def turn(root: Path, path: str) -> dict:
 
     from mrp_gnn_tpu_torch import train
     from mrp_gnn_tpu_torch.data.pipeline import make_dataset
-    from mrp_gnn_tpu_torch.ops import _build, bsp
+    from mrp_gnn_tpu_torch.ops import _build, bsp, ell
     from mrp_gnn_tpu_torch.serving import Predictor
 
     here = Path(train.__file__).resolve()
@@ -134,16 +149,34 @@ def turn(root: Path, path: str) -> dict:
     pred = Predictor(cfg, state.model, graph=batch["graph"])
     serve = [pred.throughput(iters=20)["batch_latency_s"] * 1e3
              for _ in range(REPS)]
+    images = torch.as_tensor(batch["images"], dtype=torch.float32, device=dev)
+    serve_busy = busy_ms(lambda: pred.forward(images))
+    g = x[3]
+    rng = np.random.default_rng(41)
+    kernel = None
+    if path == "bsp2":
+        dk = cfg.model.attention_dim
+        q_s, k = (torch.from_numpy((rng.normal(size=(g.max_nodes, dk))
+                                    / np.sqrt(dk)).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        kernel = busy_ms(lambda: bsp.attention_weights(q_s, k, g.ell_src,
+                                                       g.ell_mask), n=30)
+    elif path == "ell":
+        logits = torch.from_numpy(rng.normal(size=tuple(
+            g.ell_src.shape)).astype(np.float32)).to(dev)
+        kernel = busy_ms(lambda: ell.softmax(logits, g.ell_mask), n=30)
     return {"root": str(root), "path": path, "step_ms": times,
             "median_ms": statistics.median(times), "busy_ms_per_step": busy,
             "serve_ms": serve, "serve_median_ms": statistics.median(serve),
+            "busy_ms_per_request": serve_busy, "kernel_ms": kernel,
             "loadavg": os.getloadavg(), "torch_threads": torch.get_num_threads()}
 
 
 def ab(parent: Path, change: Path, paths) -> dict:
     turns = [("parent", parent), ("change", change), ("change", change),
              ("parent", parent)]
-    keys = ("median_ms", "busy_ms_per_step", "serve_median_ms")
+    keys = ("median_ms", "busy_ms_per_step", "serve_median_ms",
+            "busy_ms_per_request", "kernel_ms")
     out = {}
     for path in paths:
         res = {key: {"parent": [], "change": []} for key in keys}
@@ -182,9 +215,12 @@ def main() -> int:
         print(json.dumps({"metric": "port_step_ab", "by_path": res,
                           "timing": f"train step: CUDA events, median of "
                                     f"{REPS} x {INNER} steps; busy: profiler "
-                                    "device time per step; serve: Predictor "
+                                    "device time per step and per request "
+                                    "(device-side forward); serve: Predictor "
                                     f"batch latency, median of {REPS} x 20; "
-                                    "one process per turn",
+                                    "kernel: the path's softmax kernel, "
+                                    "profiler device time per call (bsp2, "
+                                    "ell); one process per turn",
                           "nvidia_smi": smi}))
         return 0
     if args.root is None:

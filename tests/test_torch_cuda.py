@@ -13,7 +13,7 @@ import torch
 
 import ell_cases
 from mrp_gnn_tpu_torch.graph import build_graph_batch, radius_edges
-from mrp_gnn_tpu_torch.ops import _build, bsp
+from mrp_gnn_tpu_torch.ops import _build, bsp, ell
 
 pytestmark = pytest.mark.cuda
 
@@ -295,7 +295,6 @@ def test_mean_matches_plain(dev, graph):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("graph", ["square", "wide"])
 def test_ell_max_matches_plain_bit_for_bit(dev, D, dtype, graph):
-    from mrp_gnn_tpu_torch.ops import ell
     g = (_graph() if graph == "square" else _wide_graph()).to(dev)
     (v,) = _inputs(dev, g.max_nodes, D, seed=10)
     v = v.to(dtype)
@@ -313,7 +312,6 @@ def test_ell_max_propagates_nan_and_its_gradient_matches_plain(dev):
     the gradient (plain torch on both devices) with ties among the valid
     slots equals the CPU's within 1e-5 of its largest element: the card's
     index_add_ sums the split shares in another order."""
-    from mrp_gnn_tpu_torch.ops import ell
     g = _wide_graph().to(dev)
     v, ct = _inputs(dev, g.max_nodes, 1024, 1024, seed=11)
     v[3, 5] = float("nan")  # node 3 feeds node 1 of the first scene
@@ -422,7 +420,6 @@ def test_ell_kernels_match_plain(dev, D, dtype, graph):
     weights are a masked softmax, as on the attention path: f32 sums of up
     to 200 random-normal weights would differ by more than 2e-5 in another
     order."""
-    from mrp_gnn_tpu_torch.ops import ell
     g = (_graph() if graph == "square" else _wide_graph()).to(dev)
     V = g.max_nodes
     q, k, x = _inputs(dev, V, 64, 64, D, seed=14)
@@ -447,7 +444,6 @@ def test_ell_kernels_match_plain(dev, D, dtype, graph):
 def test_ell_attention_grads_match_plain(dev, dtype):
     """The three ELL kernels' attention with the JAX custom vjps' gradients
     (plain torch) against autograd through its plain version."""
-    from mrp_gnn_tpu_torch.ops import ell
     g = _wide_graph().to(dev)
     q, k, v, ct = _inputs(dev, 256, 64, 64, 2048, 2048, seed=16)
     outs, grads = [], []
@@ -772,7 +768,6 @@ def test_spmm_forms_and_max_match_plain_bit_for_bit(dev, case, dtype, D, form):
     loads) the vector form raises; the wrappers give the bits of their
     rule's form. The masked max on the same graph: bit-equal to the plain
     version, NaN in giving NaN out. Rows without a valid slot give 0."""
-    from mrp_gnn_tpu_torch.ops import ell
     g = _case(case, dev)
     src, mask = g.ell_src, g.ell_mask
     (x,) = _inputs(dev, g.max_nodes, D, seed=17)
@@ -805,3 +800,113 @@ def test_spmm_forms_and_max_match_plain_bit_for_bit(dev, case, dtype, D, form):
     if bsp.SPMM_FORMS[bsp.spmm_form(vec, D, dtype == torch.bfloat16)] == form:
         assert torch.equal(bsp.spmm(w, x, src, mask), got)
         assert torch.equal(ell.spmm(w, x, src, mask), got)
+
+
+# --- the two softmax kernels' forms (rows 2 and 12) ------------------------
+
+
+def _assert_softmax_rows(got, want, mask):
+    """f32 within 2e-5 of the plain version; masked slots and rows without
+    a valid slot exactly 0; each valid row sums to 1 within 1e-5."""
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    assert bool((got[~mask] == 0).all())
+    rows = mask.any(dim=1)
+    assert bool((got[~rows] == 0).all())
+    torch.testing.assert_close(got[rows].sum(-1),
+                               torch.ones(int(rows.sum()), device=got.device),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", bsp.WEIGHTS_FORMS)
+@pytest.mark.parametrize("dk", [36, 64, 200])
+@pytest.mark.parametrize("case", [c for c in ell_cases.CASES
+                                  if c not in ell_cases.WIDE])
+def test_weights_forms_match_plain(dev, case, dk, form):
+    """Each form of the attention weights, forced, against the plain
+    version (_assert_softmax_rows); a second launch gives the same bits; at
+    dk 36 (4-byte loads) the rows form raises; the rows form's logits have
+    the bits of the per-edge SDDMM on the same (q_s, k); the wrapper gives
+    the bits of its rule's form."""
+    g = _case(case, dev)
+    src, mask = g.ell_src, g.ell_mask
+    q, k = _inputs(dev, g.max_nodes, dk, dk, seed=31)
+    q_s, kf = bsp._scaled(q, k)
+    rule = bsp.WEIGHTS_FORMS[bsp.weights_form(dk, bsp._vec8(q_s, kf))]
+    if form == "rows" and dk % 8:
+        with pytest.raises(ValueError):
+            bsp.run_attention_weights(_Uncounted, q_s, kf, src, mask, form=form)
+        return
+    got = bsp.run_attention_weights(_Uncounted, q_s, kf, src, mask, form=form)
+    again = bsp.run_attention_weights(_Uncounted, q_s, kf, src, mask,
+                                      form=form)
+    torch.cuda.synchronize()
+    _assert_softmax_rows(got, bsp.attention_weights_reference(q_s, kf, src,
+                                                              mask), mask)
+    assert torch.equal(got, again)
+    if form == "rows":
+        alpha, lo = bsp.run_attention_weights(_Uncounted, q_s, kf, src, mask,
+                                              form=form, logits=True)
+        assert torch.equal(alpha, got)
+        assert torch.equal(lo, bsp.run_sddmm(_Uncounted, q_s, kf, src, mask,
+                                             tiled=False))
+    else:
+        with pytest.raises(ValueError):
+            bsp.run_attention_weights(_Uncounted, q_s, kf, src, mask,
+                                      form=form, logits=True)
+    if rule == form:
+        assert torch.equal(bsp.attention_weights(q_s, kf, src, mask), got)
+
+
+@pytest.mark.parametrize("form", ell.SOFTMAX_FORMS)
+@pytest.mark.parametrize("case", list(ell_cases.CASES))
+def test_softmax_forms_match_plain(dev, case, form):
+    """Each form of the ELL softmax, forced, against the plain version
+    (_assert_softmax_rows) on logits spread wide enough that the max
+    matters; a second launch gives the same bits; past REGISTER_MAX_DEG the
+    register form raises; the wrapper gives the bits of its rule's form."""
+    g = _case(case, dev)
+    mask = g.ell_mask
+    V, deg = mask.shape
+    x = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(V, deg)).astype(np.float32) * 8).to(dev)
+    rule = ell.SOFTMAX_FORMS[ell.softmax_form(deg)]
+    if form == "register" and deg > ell.REGISTER_MAX_DEG:
+        with pytest.raises(ValueError):
+            ell.run_softmax(_Uncounted, x, mask, form=form)
+        return
+    got = ell.run_softmax(_Uncounted, x, mask, form=form)
+    again = ell.run_softmax(_Uncounted, x, mask, form=form)
+    torch.cuda.synchronize()
+    _assert_softmax_rows(got, bsp.masked_softmax(x, mask), mask)
+    assert torch.equal(got, again)
+    if rule == form:
+        assert torch.equal(ell.softmax(x, mask), got)
+
+
+@pytest.mark.parametrize("deg", [1, 4, 12, 30, 33, 128, 132])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_forms_at_any_width(dev, deg, offset):
+    """Both forms on a random mask (every 5th row empty) at widths the
+    graph builders never give (the register form at deg 1: one lane a row;
+    deg 12: a group of 16 lanes with 4 idle; deg 33: one lane with two
+    slots), also on rows that start one element past a 16-byte boundary;
+    past REGISTER_MAX_DEG the register form raises."""
+    V = 77
+    rng = np.random.default_rng(deg)
+    base = torch.from_numpy(rng.normal(size=(V * deg + 1,)).astype(
+        np.float32) * 8).to(dev)
+    x = base[offset:offset + V * deg].view(V, deg)
+    mask = torch.from_numpy(rng.random((V, deg)) < 0.6).to(dev)
+    mask[::5] = False
+    want = bsp.masked_softmax(x, mask)
+    for form in ell.SOFTMAX_FORMS:
+        if form == "register" and deg > ell.REGISTER_MAX_DEG:
+            with pytest.raises(ValueError):
+                ell.run_softmax(_Uncounted, x, mask, form=form)
+            continue
+        got = ell.run_softmax(_Uncounted, x, mask, form=form)
+        torch.cuda.synchronize()
+        _assert_softmax_rows(got, want, mask)
+    rule = ell.SOFTMAX_FORMS[ell.softmax_form(deg)]
+    assert torch.equal(ell.softmax(x, mask),
+                       ell.run_softmax(_Uncounted, x, mask, form=rule))
