@@ -105,7 +105,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path, native renderer and builder on the bsp2 path's config), peak
    memory, and profiler breakdowns of device time by kernel, from which
    every path but the plain ones is checked for the kernel bodies it must
-   run (``PATH_BODIES``, ``TRAIN_BODIES``).
+   run (``PATH_BODIES``, ``TRAIN_BODIES``);
+7. lifecycle (``phase_lifecycle``), on ``dynamic_swarm`` as above with
+   deterministic cuDNN: ``train.train`` for 4 steps with ``eval_every`` and
+   ``checkpoint_every`` 2 (evaluations of the preset's 64 eval scenes, 8
+   batches, at steps 2 and 4, the closing best record, ``config.json``,
+   checkpoints of steps 2 and 4, exact launches); a new ``train()`` on a
+   directory that holds only the step-2 checkpoint resumes at step 3, bit
+   for bit equal to the straight run (losses, best eval, parameters);
+   ``evaluate()`` of the restored checkpoint with the kernels against the
+   plain ops; ``Predictor.from_checkpoint`` against a Predictor on the
+   model in memory; then ``benchmark.main`` with ``--what fusion``,
+   ``train_edge`` (the JAX benchmark's defaults: 8,192 nodes, D 2048, dk
+   64), ``train`` and ``mfu`` (``--config dynamic_swarm``), each record
+   printed, every ``pallas_*`` route launching a port kernel and no
+   ``xla_*`` route launching one.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -118,16 +132,20 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mrp_gnn_tpu_torch import train
+from mrp_gnn_tpu_torch import benchmark, train
+from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
 from mrp_gnn_tpu_torch.config import get_config
 from mrp_gnn_tpu_torch.data import graph_native, native
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
@@ -136,6 +154,7 @@ from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
 from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
 from mrp_gnn_tpu_torch.ops import _build, bsp, edge, ell
 from mrp_gnn_tpu_torch.ops import reference as R
+from mrp_gnn_tpu_torch.evaluate import evaluate
 from mrp_gnn_tpu_torch.serving import Predictor
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
@@ -144,6 +163,10 @@ TOL_F32 = 2e-5               # kernel vs plain, f32: sums in another order
 TOL_BF16_REL = 2.0 ** -7     # bf16 outputs: one bf16 ulp, relative
 TOL_SERVE_DEPTH_M = 1e-3     # kernel vs plain ops through the whole net, metres
 TOL_TRAIN_REL = 1e-5         # train loss terms and grad norms, kernels vs plain
+# evaluate() with the kernels against the plain ops: rmse and abs_rel
+# relative; the deltas and mIoU absolute (100 flipped pixels of 1M)
+TOL_EVAL_REL, TOL_EVAL_ABS = 1e-4, 1e-4
+TOL_CKPT_SERVE_M = 1e-6      # Predictor.from_checkpoint vs the model in memory
 # Function gradients vs autograd through the plain version, relative to the
 # largest gradient: f32 sums in another order; with bf16 values the plain
 # autograd rounds each slot's value gradient to bf16 before summing them.
@@ -2205,6 +2228,182 @@ def check_path_bodies(path: str, ours: dict, where: str) -> None:
     log(f"[timing] the {path} path's {where} ran {run}")
 
 
+LIFECYCLE_STEPS = 4  # the lifecycle phase's run: eval and checkpoint every 2
+
+
+def _train_terms(records, steps) -> list:
+    """The loss terms and grad norms of the train records at ``steps``."""
+    timing = ("wall_s", "step_time_s", "views_per_s", "edges_per_s")
+    return [{k: v for k, v in r.items() if k not in timing} for r in records
+            if "total" in r and r["step"] in steps]
+
+
+def phase_lifecycle(dev, tag: dict) -> dict:
+    """A user's path around a run on ``dynamic_swarm``: train with periodic
+    eval and checkpoints, resume, evaluate a checkpoint, serve from it,
+    benchmark. cuDNN is deterministic for the train, resume, eval and serve
+    steps (the port's kernels sum in a fixed order), so the resumed run is
+    held to the straight run bit for bit."""
+    t_phase = time.perf_counter()
+    cfg0 = swarm_config()
+    m = cfg0.model
+    h = m.num_fusion_layers * m.attention_heads
+    eval_batches = cfg0.data.num_eval_scenes // cfg0.data.scenes_per_batch
+    n_evals = LIFECYCLE_STEPS // 2
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("straight", "resumed",
+                                                  "saved")}
+
+        def run_cfg(d):
+            return cfg0.replace(train=dataclasses.replace(
+                cfg0.train, log_every=1, eval_every=2, checkpoint_every=2,
+                checkpoint_dir=d))
+
+        cfg = run_cfg(dirs["straight"])
+        # 1. train with eval and checkpoints
+        torch.cuda.synchronize()
+        bsp.reset_launches()  # the lifecycle's training path starts here
+        t0 = time.perf_counter()
+        straight, recs = train.train(cfg, num_steps=LIFECYCLE_STEPS,
+                                     device=dev)
+        times["train_s"] = time.perf_counter() - t0
+        launches = bsp.launch_counts()  # ... and ends here
+        per_step = {"bsp_fused_attention": h, "bsp_sddmm": h, "bsp_spmm": h,
+                    "bsp_spmm_t2": h}
+        want = _expected({k: v * LIFECYCLE_STEPS for k, v in per_step.items()})
+        want["bsp_fused_attention"] += h * eval_batches * n_evals
+        if launches != want:
+            raise AssertionError(f"train with eval: launches {launches}, "
+                                 f"expected {want}")
+        evals = [r for r in recs if "eval_rmse" in r]
+        best = [r for r in recs if "best_eval_rmse" in r]
+        if ([e["step"] for e in evals] != [2, 4]
+                or any(e["eval_eval_batches"] != eval_batches for e in evals)
+                or len(best) != 1 or best[0]["best_eval_rmse"] != min(
+                    e["eval_rmse"] for e in evals)):
+            raise AssertionError(f"eval records {evals}, best {best}")
+        listed = sorted(os.listdir(dirs["straight"]))
+        if listed != ["ckpt_2.pt", "ckpt_4.pt", "config.json"]:
+            raise AssertionError(f"checkpoint directory holds {listed}")
+        log(f"[lifecycle] trained {LIFECYCLE_STEPS} steps in "
+            f"{times['train_s']:.2f} s: evals {json.dumps(evals)}, "
+            f"{json.dumps(best[0])}, {listed}, launches {launches}")
+
+        # 2. resume from the step-2 checkpoint alone
+        os.makedirs(dirs["resumed"])
+        shutil.copy(os.path.join(dirs["straight"], "ckpt_2.pt"),
+                    dirs["resumed"])
+        t0 = time.perf_counter()
+        resumed, rest = train.train(run_cfg(dirs["resumed"]),
+                                    num_steps=LIFECYCLE_STEPS, device=dev)
+        times["resume_s"] = time.perf_counter() - t0
+        if rest[0]["step"] != 3:
+            raise AssertionError(f"resumed at step {rest[0]['step']}, not 3")
+        steps = (3, 4)
+        got, ref = _train_terms(rest, steps), _train_terms(recs, steps)
+        if got != ref or rest[-1] != best[0]:
+            raise AssertionError(f"resumed run {got}, {rest[-1]}; straight "
+                                 f"run {ref}, {best[0]}")
+        diffs = [n for (n, a), (_, b) in zip(straight.model.named_parameters(),
+                                             resumed.model.named_parameters())
+                 if not torch.equal(a, b)]
+        if diffs:
+            raise AssertionError(f"resumed parameters differ: {diffs[:5]}")
+        log(f"[lifecycle] resumed at step 3 in {times['resume_s']:.2f} s: "
+            f"losses at steps 3 and 4, the best eval and every parameter "
+            "bit for bit equal to the straight run (cuDNN deterministic)")
+
+        # 3. evaluate the checkpoint, kernels against the plain ops
+        state = train.create_train_state(cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(dirs["straight"]).restore_latest(state)
+        torch.cuda.synchronize()
+        times["restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CheckpointManager(dirs["saved"]).save(state.step, state)
+        times["save_s"] = time.perf_counter() - t0
+        results = {}
+        for name, c in (("kernels", cfg), ("plain", _plain(cfg))):
+            before = bsp.launch_counts()
+            t0 = time.perf_counter()
+            results[name] = evaluate(c, state.model)
+            times[f"eval_s_per_batch_{name}"] = (
+                (time.perf_counter() - t0) / results[name]["eval_batches"])
+            got = _delta(before, bsp.launch_counts())
+            want = _expected({"bsp_fused_attention": h * eval_batches}
+                             if name == "kernels" else {})
+            if got != want:
+                raise AssertionError(f"evaluate ({name}): launches {got}, "
+                                     f"expected {want}")
+        k, p = results["kernels"], results["plain"]
+        errs = {x: abs(k[x] - p[x]) / abs(p[x]) for x in ("rmse", "abs_rel")}
+        errs.update({x: abs(k[x] - p[x]) for x in
+                     ("delta1", "delta2", "delta3", "miou")})
+        log(f"[lifecycle] evaluate, step {state.step}: kernels "
+            f"{json.dumps(k)}; plain ops {json.dumps(p)}; differences "
+            f"{json.dumps(errs)} (rmse, abs_rel relative, tol {TOL_EVAL_REL}; "
+            f"the others absolute, tol {TOL_EVAL_ABS})")
+        if (k["eval_batches"] != eval_batches
+                or max(errs["rmse"], errs["abs_rel"]) > TOL_EVAL_REL
+                or max(errs[x] for x in ("delta1", "delta2", "delta3",
+                                         "miou")) > TOL_EVAL_ABS):
+            raise AssertionError("evaluate: the kernels and the plain ops "
+                                 "disagree")
+
+        # 4. serve from the checkpoint
+        b = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))
+        t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(cfg, dirs["straight"],
+                                         graph=b["graph"])
+        times["from_checkpoint_s"] = time.perf_counter() - t0
+        before = bsp.launch_counts()
+        out = pred(b["images"])
+        got = _delta(before, bsp.launch_counts())
+        if got != _expected({"bsp_fused_attention": h}):
+            raise AssertionError(f"from_checkpoint request: launches {got}")
+        ref = Predictor(cfg, straight.model, graph=b["graph"])(b["images"])
+        err = float(np.abs(out["depth"] - ref["depth"]).max())
+        if err > TOL_CKPT_SERVE_M or not np.array_equal(out["seg"], ref["seg"]):
+            raise AssertionError(f"from_checkpoint: depth differs by {err} m "
+                                 "or seg differs")
+        log(f"[lifecycle] Predictor.from_checkpoint: depth within {err:.3e} m "
+            f"(tol {TOL_CKPT_SERVE_M}) of the model in memory, seg equal")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+    # 5. the benchmark's single-device benches, as a user runs them
+    t0 = time.perf_counter()
+    records = []
+    for argv in (["--what", "fusion"], ["--what", "train_edge"],
+                 ["--what", "train", "--config", "dynamic_swarm"],
+                 ["--what", "mfu", "--config", "dynamic_swarm"]):
+        recs = benchmark.main(argv)
+        if not recs:
+            raise AssertionError(f"benchmark {argv} gave no record")
+        records += recs
+    times["benchmark_s"] = time.perf_counter() - t0
+    for r in records:
+        if r["backend"] != dev.type or not all(
+                np.isfinite(v) for v in r.values()
+                if isinstance(v, float)):
+            raise AssertionError(f"benchmark record {r}")
+        path = r.get("path", "")
+        if path.startswith("pallas_") and not r["launches"]:
+            raise AssertionError(f"{r['bench']} {path} launched no kernel")
+        if path.startswith("xla_") and r["launches"]:
+            raise AssertionError(f"{r['bench']} {path} launched {r['launches']}")
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"metric": "lifecycle", "config": cfg0.name,
+                    "times": times,
+                    "timing": "host clock; eval per batch includes the numpy "
+                              "render of its scenes", **tag}))
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2282,6 +2481,8 @@ def main() -> int:
             if path in PATH_BODIES:
                 check_path_bodies(path, served, "serving profile")
                 check_path_bodies(path, trained, "train profile")
+    with phase("lifecycle"):
+        phase_lifecycle(dev, tag)
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",

@@ -14,9 +14,10 @@ ahead by a thread (``PrefetchIterator``) when ``cfg.prefetch > 0``.
 Scenes are rendered by the native C++ renderer (``data/native.py``) where
 it builds, as in the JAX package, or by the numpy one (``renderer``).
 
-Not ported yet: resuming the stream at a batch (``start_batch``, with
-checkpoints: ROADMAP.md, queue A item 8); augmentation, per-host
-``node_range`` sharding, the grain loader and the on-disk dataset (queue A
+``make_train_iterator(start_batch=n)`` resumes the stream as if ``n``
+batches had been consumed (``BatchIterator.fast_forward``), as a resumed
+run needs. Not ported yet: augmentation, per-host ``node_range``
+sharding, the grain loader and the on-disk dataset (ROADMAP.md, queue A
 item 9).
 """
 
@@ -182,6 +183,19 @@ class BatchIterator:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self._epoch = 0
+        self._skip_batches = 0
+
+    @property
+    def batches_per_epoch(self) -> int:
+        return len(self.ds) // self.bs
+
+    def fast_forward(self, n_batches: int) -> None:
+        """Position the stream as if ``n_batches`` were already consumed, so
+        a resumed run continues the data order where it left off (the
+        shuffle order is a function of (seed, epoch))."""
+        bpe = max(self.batches_per_epoch, 1)
+        self._epoch = n_batches // bpe
+        self._skip_batches = n_batches % bpe
 
     def __iter__(self):
         order = np.arange(len(self.ds))
@@ -189,9 +203,11 @@ class BatchIterator:
             rng = np.random.default_rng([self.seed, self._epoch])
             rng.shuffle(order)
         self._epoch += 1
-        starts = list(range(0, len(order) - self.bs + 1, self.bs))
+        skip, self._skip_batches = self._skip_batches, 0
+        starts = list(range(skip * self.bs, len(order) - self.bs + 1, self.bs))
         tail = len(order) - (len(order) % self.bs)
-        if not self.drop_remainder and tail < len(order):
+        if (not self.drop_remainder and tail < len(order)
+                and tail >= skip * self.bs):
             starts.append(tail)  # partial final batch (padded + masked)
         for start in starts:
             idxs = order[start:start + self.bs]
@@ -277,22 +293,23 @@ class PrefetchIterator:
         self._thread.join(timeout=2.0)
 
 
-def make_train_iterator(cfg: DataConfig, start_batch: int = 0):
+def make_train_iterator(cfg: DataConfig, start_batch: int = 0,
+                        data_state: str | None = None):
     """Endless shuffled training stream; prefetched when cfg.prefetch > 0.
 
-    Only the builtin loader from the start of the stream is ported: the
-    grain loader (ROADMAP.md, queue A item 9) and ``start_batch`` resume
-    (item 8, with checkpoints) raise NotImplementedError.
+    start_batch: resume position in batches (the restored step times the
+    accumulation), so the data order continues across restarts.
+    data_state: a serialized iterator state, which only the grain loader
+    reads; the builtin stream seeks by ``start_batch``. The grain loader
+    (ROADMAP.md, queue A item 9) raises NotImplementedError.
     """
     if cfg.loader != "builtin":
         raise NotImplementedError(
             f"loader={cfg.loader!r} is not ported yet (ROADMAP.md, queue A "
             "item 9); use loader='builtin'")
-    if start_batch:
-        raise NotImplementedError(
-            "resuming the stream at a batch comes with checkpoints "
-            "(ROADMAP.md, queue A item 8)")
     it = make_dataset(cfg, "train")
+    if start_batch:
+        it.fast_forward(start_batch)
     if cfg.prefetch > 0:
         return PrefetchIterator(it, cfg.prefetch)
     return iter(it.repeat())

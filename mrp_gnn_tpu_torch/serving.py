@@ -5,9 +5,9 @@ the graph topology and batch capacity are fixed at construction, so every
 request has the same shapes. It runs on the CUDA card unless the caller
 passes ``device="cpu"``; with no card it raises rather than run elsewhere.
 
-Not ported yet (ROADMAP.md, queue A item 10): ``from_checkpoint`` (needs
-``checkpoint.py``), the portable export (``torch.export`` in the place of
-StableHLO) and the CLI.
+``Predictor.from_checkpoint`` serves the newest checkpoint of a training
+run. Not ported yet (ROADMAP.md, queue A item 10): the portable export
+(``torch.export`` in the place of StableHLO) and the CLI.
 """
 
 from __future__ import annotations
@@ -98,6 +98,21 @@ class Predictor:
                 sl = slice(j * n, (j + 1) * n)
                 results.append({k: v[sl] for k, v in out.items()})
         return results
+
+    @classmethod
+    def from_checkpoint(cls, cfg: ExperimentConfig, checkpoint_dir: str,
+                        device=None,
+                        graph: Optional[GraphBatch] = None) -> "Predictor":
+        """A Predictor on the model of the newest checkpoint in
+        ``checkpoint_dir`` (``checkpoint.py``); ``graph`` as in the
+        constructor. Raises FileNotFoundError when there is none."""
+        from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
+        from mrp_gnn_tpu_torch.train import create_train_state
+        device = resolve_device(device)
+        state = create_train_state(cfg, device)
+        if CheckpointManager(checkpoint_dir).restore_latest(state) is None:
+            raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+        return cls(cfg, state.model, graph=graph, device=device)
 
     def throughput(self, iters: int = 20) -> dict:
         """Steady-state batch latency and robot views/s on the card, timed

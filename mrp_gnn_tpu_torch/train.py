@@ -9,14 +9,19 @@ the fusion layer's sparse aggregations (attention at any ELL width, mean,
 max) and their backward run the hand-written kernels of ``ops/bsp.py`` and
 ``ops/ell.py``.
 
-CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20
+The loop (:func:`train`) evaluates every ``eval_every`` steps and keeps
+the best depth RMSE in the state, writes a checkpoint every
+``checkpoint_every`` steps and at the last (``checkpoint.py``), resumes
+from the newest checkpoint in ``checkpoint_dir`` at the same place in the
+data stream, and writes TensorBoard scalars to ``tensorboard_dir``.
+
+CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20 \
+        [--checkpoint_dir /tmp/ckpt] [--eval_every 10] [--max_restarts 2]
 
 The loop runs on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``). Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md item: checkpoints and resume
-(``checkpoint_dir``, queue A item 8), periodic eval (``eval_every``, A8),
-TensorBoard summaries (``tensorboard_dir``, A8), mesh axes > 1 (A11) and
-the grain loader (A9).
+NotImplementedError that names its ROADMAP.md item: mesh axes > 1 (A11)
+and the grain loader (A9).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 from typing import Callable, Iterator
 
@@ -183,11 +189,8 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    tr, pc = cfg.train, cfg.parallel
-    todo = [(tr.checkpoint_dir, "checkpoint_dir (checkpoints and resume)", "A8"),
-            (tr.eval_every > 0, "eval_every > 0 (periodic eval)", "A8"),
-            (tr.tensorboard_dir, "tensorboard_dir (summaries)", "A8"),
-            (pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1,
+    pc = cfg.parallel
+    todo = [(pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1,
              "mesh axes > 1 (data, graph and model parallelism)", "A11"),
             (cfg.data.loader != "builtin", f"loader={cfg.data.loader!r}", "A9")]
     for on, what, item in todo:
@@ -231,6 +234,13 @@ def _counts(graph, accum: int) -> tuple:
             sum(int(g.n_edges) for g in graphs))
 
 
+def _write_config(cfg: ExperimentConfig) -> None:
+    """The config that produced a run's checkpoints, beside them."""
+    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+    with open(os.path.join(cfg.train.checkpoint_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+
+
 def train(cfg: ExperimentConfig, num_steps: int | None = None,
           log_fn: Callable[[dict], None] | None = None,
           data_iter: Iterator[dict] | None = None, device=None) -> tuple:
@@ -241,30 +251,69 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
     ``wall_s``, ``step_time_s`` (host clock between log points, the device
     synchronised by reading the terms, the next batch's fetch included),
     ``views_per_s`` and ``edges_per_s``. A non-finite logged loss raises
-    FloatingPointError when ``halt_on_nonfinite`` is set.
+    FloatingPointError when ``halt_on_nonfinite`` is set, before the step
+    could be checkpointed.
+
+    With ``checkpoint_dir``, the run writes ``config.json`` there, resumes
+    from the newest checkpoint (its own stream then starts at the
+    checkpoint's step times the accumulation; a caller's ``data_iter`` is
+    used as it is) and saves every ``checkpoint_every`` steps and at the
+    last. With ``eval_every``, each evaluation is a record of ``eval_*``
+    keys and the best depth RMSE is kept in the state; a closing record
+    gives ``best_eval_rmse`` and ``best_eval_step``. With
+    ``tensorboard_dir``, every record's scalars go to a TensorBoard event
+    file there.
     """
     _check_ported(cfg)
     device = resolve_device(device)
-    steps = num_steps if num_steps is not None else cfg.train.steps
-    accum = max(cfg.train.grad_accum_steps, 1)
+    tr = cfg.train
+    steps = num_steps if num_steps is not None else tr.steps
+    accum = max(tr.grad_accum_steps, 1)
+    state = create_train_state(cfg, device)
+    ckpt_mgr = None
+    if tr.checkpoint_dir:
+        from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
+        ckpt_mgr = CheckpointManager(tr.checkpoint_dir)
+        _write_config(cfg)
+        ckpt_mgr.restore_latest(state)
+    start_step = state.step
     own = data_iter is None
     if own:
         from mrp_gnn_tpu_torch.data.pipeline import make_train_iterator
-        base = make_train_iterator(cfg.data)
+        base = make_train_iterator(
+            cfg.data, start_batch=start_step * accum,
+            data_state=ckpt_mgr.latest_data_state() if ckpt_mgr else None)
     else:
         base = data_iter
     it = _microbatches(base, accum) if accum > 1 else base
     records = []
+    # best tracking lives in the state, so it survives checkpoint/resume
+    best_rmse, best_step = state.best_rmse, state.best_step
+    tb = None
     try:
-        batch = next(it)
-        state = create_train_state(cfg, device)
+        if tr.tensorboard_dir:
+            from torch.utils.tensorboard import SummaryWriter
+            tb = SummaryWriter(tr.tensorboard_dir)
+
+        def emit(rec: dict) -> None:
+            records.append(rec)
+            if log_fn:
+                log_fn(rec)
+
+        def summarize(step: int, scalars: dict) -> None:
+            if tb is not None:
+                for k, v in scalars.items():
+                    tb.add_scalar(k, v, step)
+
         step_fn = make_train_step(cfg, state.model, state.optimizer)
-        n_nodes, n_edges = _counts(batch["graph"], accum)
+        if start_step < steps:
+            batch = next(it)
+            n_nodes, n_edges = _counts(batch["graph"], accum)
         t0 = time.perf_counter()
-        t_last, step_last = t0, 0
-        for i in range(steps):
+        t_last, step_last = t0, start_step
+        for i in range(start_step, steps):
             state, terms = step_fn(state, *batch_to_device(batch, device))
-            if (i + 1) % cfg.train.log_every == 0 or i == steps - 1:
+            if (i + 1) % tr.log_every == 0 or i == steps - 1:
                 terms = {k: float(v) for k, v in terms.items()}
                 now = time.perf_counter()
                 dt = (now - t_last) / max(i + 1 - step_last, 1)
@@ -272,17 +321,39 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 rec = {"step": i + 1, **terms, "wall_s": now - t0,
                        "step_time_s": dt, "views_per_s": n_nodes / dt,
                        "edges_per_s": n_edges / dt}
-                records.append(rec)
-                if log_fn:
-                    log_fn(rec)
-                if cfg.train.halt_on_nonfinite and not math.isfinite(rec["total"]):
+                emit(rec)
+                if tr.halt_on_nonfinite and not math.isfinite(rec["total"]):
+                    # the last checkpoint stays the restart point
                     raise FloatingPointError(
-                        f"non-finite loss {rec['total']} at step {i + 1}")
+                        f"non-finite loss {rec['total']} at step {i + 1}; "
+                        "restart resumes from the last checkpoint")
+                summarize(i + 1, {k: v for k, v in rec.items() if k != "step"})
+            if tr.eval_every and (i + 1) % tr.eval_every == 0:
+                from mrp_gnn_tpu_torch.evaluate import evaluate
+                ev = evaluate(cfg, state.model)
+                ev_rec = {"step": i + 1,
+                          **{f"eval_{k}": v for k, v in ev.items()}}
+                emit(ev_rec)
+                summarize(i + 1, {k: v for k, v in ev_rec.items()
+                                  if k != "step" and isinstance(v, (int, float))})
+                if "rmse" in ev and ev["rmse"] < best_rmse:
+                    best_rmse, best_step = ev["rmse"], i + 1
+                    state.best_rmse, state.best_step = best_rmse, best_step
+            if ckpt_mgr and ((i + 1) % tr.checkpoint_every == 0
+                             or i == steps - 1):
+                ckpt_mgr.save(i + 1, state)
             if i + 1 < steps:
                 batch = next(it)
+        if best_step >= 0:
+            emit({"step": steps, "best_eval_rmse": best_rmse,
+                  "best_eval_step": best_step})
     finally:
         if own and hasattr(base, "close"):
             base.close()
+        if tb is not None:
+            tb.close()
+    if ckpt_mgr:
+        ckpt_mgr.close()
     return state, records
 
 
@@ -291,12 +362,22 @@ def main(argv=None):
     p.add_argument("--config", required=True)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--tensorboard_dir", default=None)
     p.add_argument("--depth_loss", default=None, choices=["l1", "berhu", "silog"])
     p.add_argument("--train_scenes", type=int, default=None)
     p.add_argument("--grad_accum", type=int, default=None)
+    p.add_argument("--eval_every", type=int, default=None)
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    p.add_argument("--max_restarts", type=int, default=0,
+                   help="on non-finite loss, resume from the last checkpoint "
+                        "with halved LR up to N times (needs "
+                        "--checkpoint_dir)")
     p.add_argument("--remat", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="autograd anomaly detection on, and host-side "
+                        "validation of the first batch's graph")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
@@ -305,14 +386,20 @@ def main(argv=None):
     tr = cfg.train
     if args.lr is not None:
         tr = dataclasses.replace(tr, learning_rate=args.lr)
+    if args.checkpoint_dir is not None:
+        tr = dataclasses.replace(tr, checkpoint_dir=args.checkpoint_dir)
     if args.log_every is not None:
         tr = dataclasses.replace(tr, log_every=args.log_every)
+    if args.tensorboard_dir is not None:
+        tr = dataclasses.replace(tr, tensorboard_dir=args.tensorboard_dir)
     if args.depth_loss is not None:
         tr = dataclasses.replace(tr, depth_loss=args.depth_loss)
     if args.steps is not None:
         tr = dataclasses.replace(tr, steps=args.steps)
     if args.grad_accum is not None:
         tr = dataclasses.replace(tr, grad_accum_steps=args.grad_accum)
+    if args.eval_every is not None:
+        tr = dataclasses.replace(tr, eval_every=args.eval_every)
     if args.remat:
         tr = dataclasses.replace(tr, remat=True)
     cfg = cfg.replace(train=tr)
@@ -323,10 +410,40 @@ def main(argv=None):
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dtype=args.dtype))
     device = resolve_device(args.device)
+    if args.debug:
+        from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+        from mrp_gnn_tpu_torch.utils.debug import enable_debug, validate_graph
+        validate_graph(next(iter(make_dataset(cfg.data, "train")))["graph"])
+        enable_debug()
+        print("[train] debug mode: autograd anomaly detection on, graph "
+              "validated")
     print(f"[train] config={cfg.name} steps={cfg.train.steps} "
           f"device={device}", flush=True)
-    _, records = train(cfg, log_fn=lambda r: print(json.dumps(r), flush=True),
-                       device=device)
+    # Restart-based divergence recovery: the watchdog raises before a bad
+    # state is checkpointed; the run resumes from the last good checkpoint
+    # with halved LR, so the deterministic stream does not re-diverge
+    # identically.
+    restarts = 0
+    try:
+        while True:
+            try:
+                _, records = train(
+                    cfg, log_fn=lambda r: print(json.dumps(r), flush=True),
+                    device=device)
+                break
+            except FloatingPointError as e:
+                if restarts >= args.max_restarts or not cfg.train.checkpoint_dir:
+                    raise
+                restarts += 1
+                new_lr = cfg.train.learning_rate * 0.5
+                print(f"[train] {e}; restart {restarts}/{args.max_restarts} "
+                      f"with lr={new_lr:g}", flush=True)
+                cfg = cfg.replace(train=dataclasses.replace(
+                    cfg.train, learning_rate=new_lr))
+    finally:
+        if args.debug:
+            from mrp_gnn_tpu_torch.utils.debug import disable_debug
+            disable_debug()
     losses = [r["total"] for r in records if "total" in r]
     if losses:
         print(f"[train] final loss {losses[-1]:.4f}")

@@ -910,3 +910,53 @@ def test_softmax_forms_at_any_width(dev, deg, offset):
     rule = ell.SOFTMAX_FORMS[ell.softmax_form(deg)]
     assert torch.equal(ell.softmax(x, mask),
                        ell.run_softmax(_Uncounted, x, mask, form=rule))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+@pytest.mark.usefixtures("deterministic_cudnn")
+def test_resume_and_from_checkpoint_on_the_card(dev, tmp_path):
+    """The small dynamic_swarm of tests/torch_small.py on the card, through
+    the kernels: 4 straight steps against 2, a checkpoint, a new train()
+    and 2 more, bit for bit with deterministic cuDNN (the port's kernels
+    sum in a fixed order); then Predictor.from_checkpoint gives the
+    in-memory model's outputs bit for bit, launching the fused attention."""
+    from mrp_gnn_tpu_torch import train as TT
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+    from mrp_gnn_tpu_torch.serving import Predictor
+    from torch_small import small
+    kw = dict(log_every=1, eval_every=2, checkpoint_every=2)
+    timing = ("wall_s", "step_time_s", "views_per_s", "edges_per_s")
+    terms = lambda recs: [{k: v for k, v in r.items() if k not in timing}  # noqa: E731
+                          for r in recs]
+    cfg = small(get_config("dynamic_swarm"), impl="auto",
+                checkpoint_dir=str(tmp_path / "a"), **kw)
+    before = bsp.launch_counts()
+    straight, recs = TT.train(cfg, num_steps=4, device=dev)
+    assert bsp.launch_counts()["bsp_fused_attention"] > before["bsp_fused_attention"]
+    cfg_b = small(get_config("dynamic_swarm"), impl="auto",
+                  checkpoint_dir=str(tmp_path / "b"), **kw)
+    _, first = TT.train(cfg_b, num_steps=2, device=dev)
+    resumed, rest = TT.train(cfg_b, num_steps=4, device=dev)
+    assert rest[0]["step"] == 3
+    assert terms(first[:-1] + rest) == terms(recs)
+    for (n, a), (_, b) in zip(straight.model.named_parameters(),
+                              resumed.model.named_parameters()):
+        assert torch.equal(a, b), n
+    batch = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))
+    before = bsp.fused_attention.launches
+    got = Predictor.from_checkpoint(cfg, str(tmp_path / "a"),
+                                    graph=batch["graph"])(batch["images"])
+    assert bsp.fused_attention.launches == before + 1
+    want = Predictor(cfg, straight.model, graph=batch["graph"])(batch["images"])
+    for k in ("depth", "seg"):
+        np.testing.assert_array_equal(got[k], want[k])

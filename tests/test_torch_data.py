@@ -103,8 +103,6 @@ def test_train_iterator_refuses_what_is_not_ported():
     _, td = _cfgs("dynamic_swarm")
     with pytest.raises(NotImplementedError, match="queue A item 9"):
         tp.make_train_iterator(dataclasses.replace(td, loader="grain"))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tp.make_train_iterator(td, start_batch=3)
 
 
 def test_prefetch_relays_a_producer_error():

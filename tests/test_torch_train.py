@@ -9,7 +9,9 @@
   tensors, so its FusedAttention backward runs the kernels' plain versions.
   Both start from the same flax weights (``load_flax_params``).
 - Gradient accumulation over 2 microbatches (one graph each) against JAX,
-  remat against no remat, and the loop's records and refusals.
+  remat against no remat, and the loop's records and refusals (checkpoints,
+  eval and summaries: ``test_torch_checkpoint.py``,
+  ``test_torch_train_features.py``).
 
 Tolerances. Loss terms and grad norms: 1e-5 relative (f32, sums in another
 order; measured differences are under 2e-6). Parameters: 2e-5 absolute,
@@ -219,10 +221,8 @@ def test_train_loop_halts_on_a_nonfinite_loss():
 
 
 @pytest.mark.parametrize("change", [
-    dict(train=dict(checkpoint_dir="ckpt")), dict(train=dict(eval_every=5)),
-    dict(train=dict(tensorboard_dir="tb")),
     dict(parallel=dict(data_axis_size=2)), dict(data=dict(loader="grain"))],
-    ids=["checkpoint", "eval", "tensorboard", "mesh", "grain"])
+    ids=["mesh", "grain"])
 def test_train_refuses_what_is_not_ported(change):
     cfg = get_config("dynamic_swarm")
     for part, kw in change.items():
