@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, export, training and data paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -119,7 +119,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``train_edge`` (the JAX benchmark's defaults: 8,192 nodes, D 2048, dk
    64), ``train`` and ``mfu`` (``--config dynamic_swarm``), each record
    printed, every ``pallas_*`` route launching a port kernel and no
-   ``xla_*`` route launching one.
+   ``xla_*`` route launching one;
+8. export (``phase_export``): for the attention, hideg, mean and max
+   paths, the serving phase's Predictor (its first eval batch's graph)
+   exported with ``serving.export_predictor`` (the sidecar's route
+   "kernels" and the path's op of ``ops/library.py``), loaded on the card
+   with ``load_exported`` and served 3 requests, each launching the path's
+   kernel as the Predictor does and giving its outputs (bit for bit, else
+   depth within 1e-6 m and seg on 99.9% of the pixels); the attention
+   artifact also in a fresh process that imports the op library and none
+   of the model code; a profile of the artifact's requests with the
+   path's kernel bodies (``PATH_BODIES``); the artifact's device-side
+   forward and whole request against the Predictor's in turns (CUDA
+   events);
+9. data (``phase_data``), on ``dynamic_swarm`` with the native renderer
+   and graph builder: 3 batches placed on the card by ``train``'s
+   producer thread read back equal to the host batches; the worker
+   loader's first unshuffled batches (4 processes) bit for bit the builtin
+   pipeline's; ``train()`` for ``LOOP_STEPS`` steps with the builtin
+   loader, the worker loader, augmentation and 8 scene folders written by
+   ``export_scenes`` (npy), each with finite losses, its step times and
+   the device's idle share over the loop.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -148,14 +168,18 @@ from mrp_gnn_tpu_torch import benchmark, train
 from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
 from mrp_gnn_tpu_torch.config import get_config
 from mrp_gnn_tpu_torch.data import graph_native, native
-from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+from mrp_gnn_tpu_torch.data.disk import export_scenes
+from mrp_gnn_tpu_torch.data.grain_pipeline import make_grain_iterator
+from mrp_gnn_tpu_torch.data.pipeline import (TransformIterator, make_dataset,
+                                             make_train_iterator)
 from mrp_gnn_tpu_torch.graph import batch_fully_connected, build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
 from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
 from mrp_gnn_tpu_torch.ops import _build, bsp, edge, ell
 from mrp_gnn_tpu_torch.ops import reference as R
 from mrp_gnn_tpu_torch.evaluate import evaluate
-from mrp_gnn_tpu_torch.serving import Predictor
+from mrp_gnn_tpu_torch.serving import (Predictor, export_predictor,
+                                       load_exported)
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
@@ -187,6 +211,15 @@ HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
 # fully connected 8-robot scenes, D 2048, dk 64).
 BENCH_SCENES, BENCH_ROBOTS, BENCH_D, BENCH_DK = 1024, 8, 2048, 64
 LOOP_STEPS = 12  # steps of each train() loop timing
+# The export phase: each path's forward op (ops/library.py), and the
+# tolerance of the loaded program against the Predictor where it is not bit
+# for bit (depth in metres, seg the share of equal pixels).
+EXPORT_OPS = {"attention": "fused_attention", "hideg": "expanded_forward",
+              "mean": "spmm", "max": "masked_max"}
+TOL_EXPORT_DEPTH_M, TOL_EXPORT_SEG = 1e-6, 0.999
+DATA_WORKERS = 4   # the data phase's worker loader
+DISK_SCENES = 8    # scene folders the data phase writes and trains from
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -2404,6 +2437,280 @@ def phase_lifecycle(dev, tag: dict) -> dict:
     return times
 
 
+def _outputs_agree(got: dict, want: dict, where: str) -> dict:
+    """Bit equality of two output dicts, or else depth within
+    TOL_EXPORT_DEPTH_M and seg equal on TOL_EXPORT_SEG of the pixels;
+    returns the differences."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{where}: outputs {sorted(got)}, expected "
+                             f"{sorted(want)}")
+    exact = all(np.array_equal(got[k], want[k]) for k in want)
+    err = float(np.abs(got["depth"].astype(np.float64) - want["depth"]).max())
+    agree = float((got["seg"] == want["seg"]).mean())
+    if not exact and (err > TOL_EXPORT_DEPTH_M or agree < TOL_EXPORT_SEG):
+        raise AssertionError(f"{where}: depth max abs err {err} m, seg "
+                             f"agreement {agree}")
+    return {"bit_equal": exact, "depth_max_abs_err_m": err,
+            "seg_agreement": agree}
+
+
+_FRESH_PROCESS = """
+import json, sys
+import numpy as np
+import torch
+from mrp_gnn_tpu_torch.ops import bsp
+from mrp_gnn_tpu_torch.serving import load_exported
+torch.backends.cuda.matmul.allow_tf32 = False  # as in this script
+torch.backends.cudnn.allow_tf32 = False
+infer = load_exported(sys.argv[1])
+images = np.load(sys.argv[2])
+bsp.reset_launches()
+outs = [infer(x) for x in images]
+np.savez(sys.argv[3], depth=np.stack([o["depth"] for o in outs]),
+         seg=np.stack([o["seg"] for o in outs]))
+print(json.dumps({"launches": bsp.launch_counts(), "models_imported": sorted(
+    m for m in sys.modules if m.startswith("mrp_gnn_tpu_torch.models"))}))
+"""
+
+
+def phase_export(dev, serve: dict, per_request: dict, tag: dict) -> dict:
+    """The portable export of each path's Predictor (the serving phase's
+    model and first eval batch's graph, so the path's kernels are on it):
+    export and save, load on the card, three requests with exact launches
+    held to the Predictor's outputs, the attention artifact also in a fresh
+    process that never imports the model code, a profile of the artifact's
+    requests with the path's kernel bodies, and the artifact's request and
+    the Predictor's timed in turns with CUDA events."""
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        for path, op in EXPORT_OPS.items():
+            s = serve[path]
+            pred = Predictor(s["cfg"], s["model"],
+                             graph=s["batches"][0]["graph"])
+            art = os.path.join(tmp, f"{path}.pt2")
+            t0 = time.perf_counter()
+            meta = export_predictor(pred, art)
+            export_s = time.perf_counter() - t0
+            if meta["route"] != "kernels" or meta["ops"] != [
+                    f"mrp_gnn_torch::{op}"]:
+                raise AssertionError(f"{path} artifact: {meta}")
+            t0 = time.perf_counter()
+            infer = load_exported(art)
+            load_s = time.perf_counter() - t0
+            want = _expected(per_request[path])
+            requests = [b["images"] for b in s["batches"]]
+            torch.cuda.synchronize()
+            bsp.reset_launches()  # the export path starts here
+            outs = []
+            for i, images in enumerate(requests):
+                before = bsp.launch_counts()
+                outs.append(infer(images))
+                got = _delta(before, bsp.launch_counts())
+                if got != want:
+                    raise AssertionError(f"{path} artifact request {i}: "
+                                         f"launches {got}, expected {want}")
+            launches = bsp.launch_counts()  # the export path ends here
+            diffs = [_outputs_agree(o, pred(x), f"{path} request {i}")
+                     for i, (o, x) in enumerate(zip(outs, requests))]
+            fresh = None
+            if path == "attention":
+                fresh = _fresh_process(art, requests, outs, want, tmp)
+            images = torch.from_numpy(requests[0]).to(dev)
+
+            def artifact():
+                with torch.inference_mode():
+                    infer.module(images)
+
+            turns = {"artifact_device": [], "predictor_device": [],
+                     "artifact_request": [], "predictor_request": []}
+            for who in ("artifact", "predictor", "predictor", "artifact"):
+                fwd = artifact if who == "artifact" else (
+                    lambda: pred.forward(images))
+                req = infer if who == "artifact" else pred
+                turns[f"{who}_device"].append(cuda_ms(fwd, reps=5, inner=10,
+                                                      warmup=2))
+                turns[f"{who}_request"].append(cuda_ms(
+                    lambda: req(requests[0]), reps=5, inner=5, warmup=1))
+            log(json.dumps({"metric": "export", "config": s["cfg"].name,
+                            "path": path, "ops": meta["ops"],
+                            "export_s": export_s, "load_s": load_s,
+                            "launches": launches, "vs_predictor": diffs,
+                            "fresh_process": fresh, "ms": turns,
+                            "timing": "CUDA events, median of 5 x 10 "
+                                      "device-side forwards (images on the "
+                                      "card) and of 5 x 5 whole requests "
+                                      "(numpy in and out); turns artifact, "
+                                      "predictor, predictor, artifact",
+                            **tag}))
+            ours = profile_device(lambda: infer(requests[0]), 5,
+                                  "export_profile", "requests",
+                                  {"path": path, **tag})
+            check_path_bodies(path, ours, "export profile")
+            res[path] = {"launches": launches, "ms": turns}
+    return res
+
+
+def _fresh_process(art: str, requests, outs, want: dict, tmp: str) -> dict:
+    """Serve ``requests`` from the artifact in a new process that imports
+    the op library and not the model code; its launches and outputs must
+    be this process's."""
+    images = os.path.join(tmp, "requests.npy")
+    got_path = os.path.join(tmp, "fresh_outputs.npz")
+    np.save(images, np.stack(requests))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _FRESH_PROCESS, art, images,
+                           got_path], capture_output=True, text=True,
+                          env=env, cwd=tmp, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh process failed:\n{proc.stderr}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    expect = {k: v * len(requests) for k, v in want.items()}
+    if rec["launches"] != expect or rec["models_imported"]:
+        raise AssertionError(f"the fresh process: {rec}, expected launches "
+                             f"{expect} and no model module")
+    got = np.load(got_path)
+    for i, o in enumerate(outs):
+        _outputs_agree({"depth": got["depth"][i], "seg": got["seg"][i]}, o,
+                       f"fresh process request {i}")
+    log(f"[export] the attention artifact served {len(requests)} requests "
+        f"in a fresh process in {seconds:.2f} s (start-up included), "
+        f"launches {expect}, no model module imported, outputs as here")
+    return {"seconds": seconds, "launches": rec["launches"]}
+
+
+def _graph_tensors(g) -> list:
+    out = []
+    g.apply(lambda t: out.append(t) or t)
+    return out
+
+
+def _assert_same_batch(got: dict, want: dict, where: str) -> None:
+    for k in ("images", "depth", "seg"):
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            raise AssertionError(f"{where}: {k} differs")
+    a, b = _graph_tensors(got["graph"]), _graph_tensors(want["graph"])
+    if len(a) != len(b) or not all(torch.equal(x.cpu(), y)
+                                   for x, y in zip(a, b)):
+        raise AssertionError(f"{where}: the graph differs")
+
+
+def _loop_busy_ms(fn) -> tuple:
+    """(fn's result, device busy ms while it ran): the profiler, device
+    activity only, after a short traced warm-up (a trace loses its first
+    calls' activity otherwise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(10):
+            x.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device activity in the loop")
+    return out, busy
+
+
+def phase_data(dev, tag: dict) -> dict:
+    """The data layer on the card, on ``dynamic_swarm`` at full width with
+    the native renderer and graph builder: placed batches read back equal
+    to the host batches; the worker loader's unshuffled batches bit for bit
+    the builtin pipeline's; then ``train()`` for LOOP_STEPS steps in four
+    runs (a: the builtin loader, each batch placed on the card by the
+    producer thread; b: the worker loader with DATA_WORKERS processes; c:
+    augmentation; d: DISK_SCENES scene folders written by ``export_scenes``
+    (npy), with mobility 0, since folder records carry no robot positions:
+    a static radius graph, which dispatch serves by the dense plain ops),
+    each with finite losses, its step times (host clock) and, from a second
+    run under the profiler, the device's idle share over the loop."""
+    cfg0 = native_swarm_config()
+    cfg0 = cfg0.replace(train=dataclasses.replace(cfg0.train, log_every=1))
+    host = make_train_iterator(cfg0.data)
+    placed = TransformIterator(make_train_iterator(cfg0.data),
+                               train.BatchPlacer(dev))
+    try:
+        for i in range(3):
+            want = next(host)
+            images, depth, seg, graph = train.batch_to_device(next(placed),
+                                                              dev)
+            _assert_same_batch({"images": images.cpu(), "depth": depth.cpu(),
+                                "seg": seg.cpu(), "graph": graph}, want,
+                               f"placed batch {i}")
+    finally:
+        host.close()
+        placed.close()
+    log("[data] 3 batches placed on the card by the producer thread read "
+        "back equal to the host batches")
+    t0 = time.perf_counter()
+    workers = make_grain_iterator(cfg0.data, "train", shuffle=False,
+                                  workers=DATA_WORKERS)
+    try:
+        builtin = iter(make_dataset(cfg0.data, "train", shuffle=False))
+        for i in range(3):
+            _assert_same_batch(next(workers), next(builtin),
+                               f"worker loader batch {i}")
+    finally:
+        workers.close()
+    log(f"[data] the worker loader's first 3 unshuffled batches "
+        f"({DATA_WORKERS} worker processes, {time.perf_counter() - t0:.2f} s "
+        "with their start-up) are the builtin pipeline's, bit for bit")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scenes_") as tmp:
+        export_scenes(cfg0.data, tmp, "train", num_scenes=DISK_SCENES,
+                      fmt="npy")
+        runs = {
+            "builtin": cfg0.data,
+            "grain": dataclasses.replace(cfg0.data, loader="grain",
+                                         loader_workers=DATA_WORKERS),
+            "augment": dataclasses.replace(cfg0.data, augment=True),
+            "disk": dataclasses.replace(cfg0.data, dataset_root=tmp,
+                                        mobility=0.0),
+        }
+        for name, data in runs.items():
+            cfg = cfg0.replace(data=data)
+            t0 = time.perf_counter()
+            _, records = train.train(cfg, num_steps=LOOP_STEPS, device=dev)
+            run_s = time.perf_counter() - t0
+            (_, prof_records), busy = _loop_busy_ms(
+                lambda: train.train(cfg, num_steps=LOOP_STEPS, device=dev))
+            for recs in (records, prof_records):
+                if len(recs) != LOOP_STEPS or not all(
+                        np.isfinite(r["total"]) for r in recs):
+                    raise AssertionError(f"data run {name}: {recs}")
+            steps = [r["step_time_s"] for r in records]
+            loop_s = prof_records[-1]["wall_s"]
+            res[name] = {"step_time_s": steps,
+                         "median_step_s": statistics.median(steps[1:]),
+                         "device_idle_share": 1 - busy / 1e3 / loop_s}
+            log(json.dumps({
+                "metric": "data_loop", "run": name, "config": cfg.name,
+                "loader": data.loader, "workers": data.loader_workers,
+                "augment": data.augment, "dataset_root": bool(
+                    data.dataset_root), "renderer": data.renderer,
+                "graph_builder": data.graph_builder, "steps": LOOP_STEPS,
+                "run_s": run_s, "losses": [r["total"] for r in records],
+                **res[name], "device_busy_ms_profiled_run": busy,
+                "loop_s_profiled_run": loop_s,
+                "timing": "step_time_s: host clock between steps of train() "
+                          "(step 1 includes first-call costs; the median "
+                          "leaves it out); device idle share: 1 - device "
+                          "busy time over the whole profiled train() call "
+                          "(device activity only) / its loop's host clock",
+                **tag}))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2483,6 +2790,10 @@ def main() -> int:
                 check_path_bodies(path, trained, "train profile")
     with phase("lifecycle"):
         phase_lifecycle(dev, tag)
+    with phase("export"):
+        phase_export(dev, serve, {p: v[1] for p, v in paths.items()}, tag)
+    with phase("data"):
+        phase_data(dev, tag)
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",

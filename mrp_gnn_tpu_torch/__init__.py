@@ -10,6 +10,15 @@ passes ``device="cpu"``. This package imports nothing of JAX.
 
 __version__ = "0.1.0"
 
-from mrp_gnn_tpu_torch.graph import GraphBatch  # noqa: F401
-from mrp_gnn_tpu_torch.models.net import MultiRobotPerceptionNet  # noqa: F401
-from mrp_gnn_tpu_torch.data.pipeline import make_dataset  # noqa: F401
+_LAZY = {"GraphBatch": "mrp_gnn_tpu_torch.graph",
+         "MultiRobotPerceptionNet": "mrp_gnn_tpu_torch.models.net",
+         "make_dataset": "mrp_gnn_tpu_torch.data.pipeline"}
+
+
+def __getattr__(name):
+    # Imported on first use, so that a process that loads an exported
+    # program (serving.load_exported) never imports the model code.
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

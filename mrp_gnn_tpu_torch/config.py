@@ -8,8 +8,10 @@ package's values; in this package they mean:
 - ``"pallas"``: the hand-written CUDA kernels (``ops/bsp.py``);
 - ``"auto"``: the kernels when the tensors are on CUDA, the plain ops on CPU.
 
-Fields that only the JAX package acts on yet (mesh axes, loaders, remat,
-...) are kept so the dataclasses stay identical.
+Fields that only the JAX package acts on yet (the mesh axes) are kept so
+the dataclasses stay identical. ``DataConfig.loader`` "grain" selects the
+port's multi-worker loader (``data/grain_pipeline.py``, on
+``torch.utils.data.DataLoader``).
 """
 
 from __future__ import annotations
@@ -83,10 +85,10 @@ class DataConfig:
     # Background prefetch depth for the batch pipeline (0 = synchronous).
     prefetch: int = 2
     # Input pipeline: "builtin" (thread-prefetched BatchIterator) or
-    # "grain" (multi-process workers, per-record determinism, multi-host
-    # sharding; data/grain_pipeline.py).
+    # "grain" (multi-process workers, per-batch determinism, O(1) seek;
+    # data/grain_pipeline.py).
     loader: str = "builtin"
-    loader_workers: int = 0  # grain worker processes (0 = in-process)
+    loader_workers: int = 0  # loader worker processes (0 = in-process)
     # Static padded capacities; None => exact fit for homogeneous teams.
     max_nodes: int | None = None
     max_edges: int | None = None

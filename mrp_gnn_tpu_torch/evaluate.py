@@ -98,8 +98,7 @@ def main(argv=None):
     p.add_argument("--config", required=True)
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--dataset_root", default=None,
-                   help="evaluate on on-disk scene folders (not ported yet: "
-                        "ROADMAP.md, queue A item 9)")
+                   help="evaluate on on-disk scene folders (data/disk.py)")
     p.add_argument("--dump_dir", default=None,
                    help="write qualitative prediction panels (PNG) here")
     p.add_argument("--device", default=None,

@@ -79,10 +79,15 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         """Copy of the batch with every tensor field on ``device``, those of
         the row-expanded plan included."""
-        moved = {f: getattr(self, f).to(device) for f in _TENSOR_FIELDS
+        return self.apply(lambda t: t.to(device))
+
+    def apply(self, fn) -> "GraphBatch":
+        """Copy of the batch with ``fn`` applied to every tensor field, those
+        of the row-expanded plan included."""
+        moved = {f: fn(getattr(self, f)) for f in _TENSOR_FIELDS
                  if getattr(self, f) is not None}
         if self.bsp_expanded is not None:
-            moved["bsp_expanded"] = self.bsp_expanded.to(device)
+            moved["bsp_expanded"] = self.bsp_expanded.apply(fn)
         return dataclasses.replace(self, **moved)
 
     @property
@@ -127,8 +132,12 @@ class BspExpandedPlan:
     width: int
 
     def to(self, device) -> "BspExpandedPlan":
+        return self.apply(lambda t: t.to(device))
+
+    def apply(self, fn) -> "BspExpandedPlan":
+        """Copy of the plan with ``fn`` applied to every tensor field."""
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _PLAN_FIELDS})
+            self, **{f: fn(getattr(self, f)) for f in _PLAN_FIELDS})
 
 
 def expanded_ell_shape(deg: int, cap: int = 128) -> tuple[int, int]:

@@ -118,6 +118,9 @@ _WRAPPERS = {
 }
 KERNELS = tuple(_WRAPPERS)
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
+# The forward ops of ``ops/library.py`` (registered when the ops package is
+# imported), through which the autograd Functions launch their forwards.
+_OPS = torch.ops.mrp_gnn_torch
 
 
 def supports(graph) -> bool:
@@ -940,7 +943,7 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_s, k, values, ell_src, ell_mask):
         ctx.save_for_backward(q_s, k, values, ell_src, ell_mask)
-        return fused_attention(q_s, k, values, ell_src, ell_mask)
+        return _OPS.fused_attention(q_s, k, values, ell_src, ell_mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -995,7 +998,7 @@ class ExpandedFusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_s, k, values, src_x, mask_x, rows):
         ctx.save_for_backward(q_s, k, values, src_x, mask_x)
-        return expanded_forward(q_s, k, values, src_x, mask_x, rows)
+        return _OPS.expanded_forward(q_s, k, values, src_x, mask_x, rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -1011,7 +1014,7 @@ class WeightedAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, values, ell_src, ell_mask):
         ctx.save_for_backward(w, values, ell_src, ell_mask)
-        return spmm(w, values, ell_src, ell_mask)
+        return _OPS.spmm(w, values, ell_src, ell_mask)
 
     @staticmethod
     def backward(ctx, g):

@@ -124,7 +124,7 @@ class EllMax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, values, ell_src, ell_mask):
-        out = masked_max(values, ell_src, ell_mask)
+        out = bsp._OPS.masked_max(values, ell_src, ell_mask)
         ctx.save_for_backward(values, ell_src, ell_mask, out)
         return out
 

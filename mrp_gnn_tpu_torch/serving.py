@@ -4,24 +4,40 @@
 the graph topology and batch capacity are fixed at construction, so every
 request has the same shapes. It runs on the CUDA card unless the caller
 passes ``device="cpu"``; with no card it raises rather than run elsewhere.
-
 ``Predictor.from_checkpoint`` serves the newest checkpoint of a training
-run. Not ported yet (ROADMAP.md, queue A item 10): the portable export
-(``torch.export`` in the place of StableHLO) and the CLI.
+run.
+
+``export_predictor`` / ``load_exported``: the Predictor's forward, with its
+weights and serving graph baked in, saved by ``torch.export`` (the JAX
+package's StableHLO export). The kernels' forwards are custom ops
+(``ops/library.py``), so the loaded program launches the same CUDA kernels
+on the card and runs their plain versions on the CPU; loading needs that
+op library and none of the model code.
+
+CLI:
+  python -m mrp_gnn_tpu_torch.serving --config dynamic_swarm \
+      --checkpoint_dir /tmp/ckpt [--export /tmp/model.pt2] [--bench] \
+      [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
+import io
+import json
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from mrp_gnn_tpu_torch.config import ExperimentConfig
+from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.graph import (GraphBatch, batch_homogeneous,
                                      scene_edges_for)
+from mrp_gnn_tpu_torch.ops.dispatch import resolve_impl
 from mrp_gnn_tpu_torch.utils.platform import resolve_device
+
+PLATFORMS = ("cpu", "cuda")  # the device types an artifact may run on
 
 
 def _scene_graph(cfg: ExperimentConfig) -> GraphBatch:
@@ -29,6 +45,25 @@ def _scene_graph(cfg: ExperimentConfig) -> GraphBatch:
     return batch_homogeneous(
         d.scenes_per_batch, d.num_robots,
         scene_edges_for(d.num_robots, d.connectivity, d.comm_radius))
+
+
+class _Forward(nn.Module):
+    """The Predictor's forward as a function of the images alone, the one
+    that eager serving runs and ``torch.export`` traces: the model, the
+    serving graph and the edge-op route (``impl``) are fixed."""
+
+    def __init__(self, model: nn.Module, graph: GraphBatch, impl: str):
+        super().__init__()
+        self.model = model
+        self.graph = graph
+        self.impl = impl
+
+    def forward(self, images: torch.Tensor) -> dict:
+        out = self.model(images, self.graph, ops_impl=self.impl)
+        res = {"depth": out["depth"]} if "depth" in out else {}
+        if "seg_logits" in out:
+            res["seg"] = torch.argmax(out["seg_logits"], dim=-1).to(torch.int32)
+        return res
 
 
 class Predictor:
@@ -52,16 +87,14 @@ class Predictor:
         h, w = cfg.data.image_size
         self.batch_nodes = self.graph.max_nodes
         self.input_shape = (self.batch_nodes, h, w, cfg.model.in_channels)
+        self._forward = _Forward(self.model, self.graph,
+                                 resolve_impl(self.ops_impl, self.device))
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> dict:
         """Device-side forward on a tensor already on ``self.device``;
         returns device tensors, without synchronising."""
-        out = self.model(images, self.graph, ops_impl=self.ops_impl)
-        res = {"depth": out["depth"]} if "depth" in out else {}
-        if "seg_logits" in out:
-            res["seg"] = torch.argmax(out["seg_logits"], dim=-1).to(torch.int32)
-        return res
+        return self._forward(images)
 
     def __call__(self, images) -> dict:
         if not torch.is_tensor(images):
@@ -114,6 +147,31 @@ class Predictor:
             raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
         return cls(cfg, state.model, graph=graph, device=device)
 
+    # --- ahead-of-time export -------------------------------------------
+
+    def export_program(self) -> torch.export.ExportedProgram:
+        """:meth:`forward` traced by ``torch.export`` on this Predictor's
+        device, with the weights and the serving graph as constants. The
+        edge ops take the route that the Predictor takes on this device:
+        with the kernels, the program calls the custom ops of
+        ``ops/library.py``. Raises ValueError for a model whose fusion
+        layers carry an ``edge_fusion_fn`` swap (a swapped kernel has no
+        registered op; the JAX Predictor takes no swap)."""
+        if any(getattr(m, "edge_fusion_fn", None) is not None
+               for m in self.model.modules()):
+            raise ValueError("a model with an edge_fusion_fn swap cannot be "
+                             "exported: only the dispatch route's kernels "
+                             "are registered ops (ops/library.py)")
+        images = torch.zeros(self.input_shape, device=self.device)
+        with torch.no_grad():  # inference tensors cannot be traced
+            return torch.export.export(self._forward, (images,))
+
+    def export_bytes(self, platforms=PLATFORMS) -> bytes:
+        """The program of :meth:`export_program`, saved by
+        ``torch.export.save`` with its tensors on the CPU and the device
+        types it may run on (``platforms``) inside."""
+        return _serialize(self.export_program(), platforms)
+
     def throughput(self, iters: int = 20) -> dict:
         """Steady-state batch latency and robot views/s on the card, timed
         with CUDA events around ``iters`` device-side forwards of one
@@ -141,3 +199,111 @@ class Predictor:
                 "views_per_s": self.batch_nodes / dt,
                 "scenes_per_s": self.cfg.data.scenes_per_batch / dt,
                 "device": torch.cuda.get_device_name(self.device)}
+
+
+def _serialize(program: torch.export.ExportedProgram, platforms) -> bytes:
+    from torch.export.passes import move_to_device_pass
+    bad = set(platforms) - set(PLATFORMS)
+    if bad or not platforms:
+        raise ValueError(f"platforms must be a non-empty subset of "
+                         f"{PLATFORMS}, got {tuple(platforms)}")
+    buf = io.BytesIO()
+    torch.export.save(move_to_device_pass(program, "cpu"), buf,
+                      extra_files={"platforms": json.dumps(list(platforms))})
+    return buf.getvalue()
+
+
+def export_predictor(pred: Predictor, path: str,
+                     platforms=PLATFORMS) -> dict:
+    """Write the artifact of :meth:`Predictor.export_bytes` to ``path`` and
+    a JSON sidecar to ``path + ".json"``, which it returns: the JAX
+    package's keys (``config``, ``input_shape``, ``outputs``,
+    ``platforms``) and the port's ``route`` ("kernels" when the program
+    calls the kernels' ops, "plain" otherwise) and ``ops`` (the names of
+    those ops)."""
+    from mrp_gnn_tpu_torch.ops import library
+    program = pred.export_program()
+    blob = _serialize(program, platforms)
+    ops = library.op_names(program.graph_module)
+    with open(path, "wb") as f:
+        f.write(blob)
+    meta = {"config": pred.cfg.name,
+            "input_shape": list(pred.input_shape),
+            "outputs": (["depth"] if pred.cfg.model.predict_depth else [])
+            + (["seg"] if pred.cfg.model.num_seg_classes else []),
+            "platforms": list(platforms),
+            "route": "kernels" if ops else "plain", "ops": ops}
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f, indent=2)
+    return meta
+
+
+def load_exported(path: str, device=None):
+    """Load an artifact of :func:`export_predictor` on ``device`` (default:
+    the CUDA card; raises without one). Needs the op library, not the model
+    code. Returns ``callable(images) -> {"depth", "seg"}`` of numpy arrays,
+    as :meth:`Predictor.__call__`, which raises ValueError on images of
+    another shape than the exported one. The callable carries the
+    program's ``module`` (the device-side forward) and its
+    ``input_shape``."""
+    from torch.export.passes import move_to_device_pass
+
+    from mrp_gnn_tpu_torch.ops import library  # noqa: F401 (registers the ops)
+    device = resolve_device(device)
+    extra = {"platforms": ""}
+    program = torch.export.load(path, extra_files=extra)
+    platforms = json.loads(extra["platforms"])
+    if device.type not in platforms:
+        raise ValueError(f"the artifact was exported for {platforms}, not "
+                         f"{device.type}")
+    program = move_to_device_pass(program, device)
+    module = program.module()
+    name = program.graph_signature.user_inputs[0]
+    shape = next(tuple(n.meta["val"].shape) for n in program.graph.nodes
+                 if n.name == name)
+
+    def infer(images) -> dict:
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.asarray(images, np.float32))
+        if tuple(images.shape) != shape:
+            raise ValueError(f"expected images {shape}, got "
+                             f"{tuple(images.shape)}")
+        with torch.inference_mode():
+            out = module(images.to(device, torch.float32))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    infer.module = module  # device tensors in, device tensors out
+    infer.input_shape = shape
+    return infer
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", required=True)
+    p.add_argument("--checkpoint_dir", required=True)
+    p.add_argument("--export", default=None,
+                   help="write the torch.export artifact here (and its "
+                        "sidecar to <path>.json)")
+    p.add_argument("--bench", action="store_true",
+                   help="print Predictor.throughput() (the CUDA card only)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    args = p.parse_args(argv)
+
+    cfg = get_config(args.config)
+    device = resolve_device(args.device)
+    pred = Predictor.from_checkpoint(cfg, args.checkpoint_dir, device=device)
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"[serving] config={cfg.name} input={pred.input_shape} "
+          f"device={device} ({card})", flush=True)
+    if args.export:
+        meta = export_predictor(pred, args.export)
+        print(f"[serving] exported -> {args.export} (route {meta['route']}, "
+              f"ops {meta['ops']})", flush=True)
+    if args.bench:
+        print(json.dumps(pred.throughput()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,13 +15,22 @@ the best depth RMSE in the state, writes a checkpoint every
 from the newest checkpoint in ``checkpoint_dir`` at the same place in the
 data stream, and writes TensorBoard scalars to ``tensorboard_dir``.
 
+Batches reach the step off the training thread: with one microbatch a
+step, a producer thread (``data.pipeline.TransformIterator``) copies each
+batch to the card (:class:`BatchPlacer`: pinned host buffers, copies on a
+side stream, an event the step's stream waits on); with accumulation,
+:class:`_MicrobatchStacker` stacks each group on a producer thread and the
+loop copies the group. The data stream is the builtin pipeline or, with
+``loader="grain"``, the multi-worker loader, whose position is saved with
+each checkpoint (``data_state``).
+
 CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20 \
-        [--checkpoint_dir /tmp/ckpt] [--eval_every 10] [--max_restarts 2]
+        [--checkpoint_dir /tmp/ckpt] [--eval_every 10] [--max_restarts 2] \
+        [--dataset_root /data/scenes] [--augment]
 
 The loop runs on the CUDA card unless the caller asks for the CPU
-(``device="cpu"``, ``--device cpu``). Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md item: mesh axes > 1 (A11)
-and the grain loader (A9).
+(``device="cpu"``, ``--device cpu``). Not ported yet, raising
+NotImplementedError that names its ROADMAP.md item: mesh axes > 1 (A11).
 """
 
 from __future__ import annotations
@@ -190,14 +199,10 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
 
 def _check_ported(cfg: ExperimentConfig) -> None:
     pc = cfg.parallel
-    todo = [(pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1,
-             "mesh axes > 1 (data, graph and model parallelism)", "A11"),
-            (cfg.data.loader != "builtin", f"loader={cfg.data.loader!r}", "A9")]
-    for on, what, item in todo:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, queue A item "
-                f"{item[1:]})")
+    if pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1:
+        raise NotImplementedError(
+            "mesh axes > 1 (data, graph and model parallelism) are not "
+            "ported yet (ROADMAP.md, queue A item 11)")
 
 
 def _microbatches(it: Iterator[dict], accum: int) -> Iterator[dict]:
@@ -217,14 +222,111 @@ def _microbatches(it: Iterator[dict], accum: int) -> Iterator[dict]:
         yield out
 
 
+class _MicrobatchStacker:
+    """:func:`_microbatches` on a producer thread, one group ahead.
+    ``get_state()`` gives the inner iterator's state after the group last
+    handed out; errors and ``close()`` behave as in ``TransformIterator``
+    (``close_inner`` False: a caller's iterator stays open)."""
+
+    def __init__(self, it: Iterator[dict], accum: int,
+                 close_inner: bool = True):
+        from mrp_gnn_tpu_torch.data.pipeline import TransformIterator
+        self._inner = it
+        self._close_inner = close_inner
+        self._state = None
+        self._groups = TransformIterator(self._stacked(accum), lambda x: x,
+                                         depth=1, close_inner=False)
+
+    def _stacked(self, accum: int):
+        has_state = hasattr(self._inner, "get_state")
+        for group in _microbatches(self._inner, accum):
+            yield self._inner.get_state() if has_state else None, group
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        self._state, group = next(self._groups)
+        return group
+
+    def get_state(self):
+        return self._state
+
+    def close(self) -> None:
+        if self._close_inner and hasattr(self._inner, "close"):
+            self._inner.close()  # unblocks a producer waiting in next()
+        self._groups.close()
+
+
+class BatchPlacer:
+    """Copies a pipeline batch to ``device``; runs on the producer thread.
+
+    On the card: images, depth and seg are staged in fresh pinned host
+    tensors (the caching host allocator keeps a block until its copy's
+    event has completed), then they and the graph are copied with
+    ``non_blocking`` on a side stream. Every device tensor is marked as
+    used by the step's stream (``record_stream``), so the caching
+    allocator does not hand its memory out again while a step still reads
+    it, and an event recorded after the copies goes with the batch under
+    "_ready", for the step's stream to wait on (:func:`batch_to_device`).
+    A static graph (the same object every batch) is copied once. On the
+    CPU a batch passes unchanged.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self.step_stream = torch.cuda.current_stream(self.device)
+            self.copy_stream = torch.cuda.Stream(self.device)
+        self._graph = (None, None)  # the last host graph and its copy
+
+    def _put(self, t: torch.Tensor) -> torch.Tensor:
+        d = t.pin_memory().to(self.device, non_blocking=True)
+        d.record_stream(self.step_stream)
+        return d
+
+    def __call__(self, batch: dict) -> dict:
+        if not self.cuda:
+            return batch
+        with torch.cuda.stream(self.copy_stream):
+            arrays = [self._put(torch.from_numpy(np.asarray(batch[k])))
+                      for k in ("images", "depth", "seg")]
+            host, dev = self._graph
+            if batch["graph"] is not host:
+                host, dev = batch["graph"], batch["graph"].apply(self._put)
+                self._graph = (host, dev)
+            ready = torch.cuda.Event()
+            ready.record(self.copy_stream)
+        return {**batch, "_placed": (*arrays, dev), "_ready": ready}
+
+
 def batch_to_device(batch: dict, device) -> tuple:
-    """(images, depth, seg, graph) of a pipeline batch on ``device``."""
+    """(images, depth, seg, graph) of a pipeline batch on ``device``: the
+    copies of :class:`BatchPlacer` when it placed the batch (the current
+    stream then waits for them), else copies made here."""
+    if "_placed" in batch:
+        torch.cuda.current_stream(device).wait_event(batch["_ready"])
+        return batch["_placed"]
     arrays = [torch.from_numpy(np.asarray(batch[k])).to(device)
               for k in ("images", "depth", "seg")]
     g = batch["graph"]
     graph = ([x.to(device) for x in g] if isinstance(g, (list, tuple))
              else g.to(device))
     return (*arrays, graph)
+
+
+def _wrap_stream(base: Iterator[dict], accum: int, device,
+                 own: bool) -> Iterator[dict]:
+    """The loop's batch stream over ``base``: each batch placed on the card
+    by a producer thread (one microbatch a step), or each group stacked by
+    one (accumulation; the loop copies the group). Its ``get_state()`` is
+    aligned with what the loop has taken. A caller's ``base`` (``own``
+    False) is never closed."""
+    from mrp_gnn_tpu_torch.data.pipeline import TransformIterator
+    if accum > 1:
+        return _MicrobatchStacker(base, accum, close_inner=own)
+    return TransformIterator(base, BatchPlacer(device), close_inner=own)
 
 
 def _counts(graph, accum: int) -> tuple:
@@ -285,7 +387,7 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
             data_state=ckpt_mgr.latest_data_state() if ckpt_mgr else None)
     else:
         base = data_iter
-    it = _microbatches(base, accum) if accum > 1 else base
+    it = _wrap_stream(base, accum, device, own)
     records = []
     # best tracking lives in the state, so it survives checkpoint/resume
     best_rmse, best_step = state.best_rmse, state.best_step
@@ -341,15 +443,14 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                     state.best_rmse, state.best_step = best_rmse, best_step
             if ckpt_mgr and ((i + 1) % tr.checkpoint_every == 0
                              or i == steps - 1):
-                ckpt_mgr.save(i + 1, state)
+                ckpt_mgr.save(i + 1, state, data_state=it.get_state())
             if i + 1 < steps:
                 batch = next(it)
         if best_step >= 0:
             emit({"step": steps, "best_eval_rmse": best_rmse,
                   "best_eval_step": best_step})
     finally:
-        if own and hasattr(base, "close"):
-            base.close()
+        it.close()  # and the pipeline below it, unless it is the caller's
         if tb is not None:
             tb.close()
     if ckpt_mgr:
@@ -375,6 +476,10 @@ def main(argv=None):
                         "with halved LR up to N times (needs "
                         "--checkpoint_dir)")
     p.add_argument("--remat", action="store_true")
+    p.add_argument("--dataset_root", default=None,
+                   help="train on on-disk scene folders (data/disk.py)")
+    p.add_argument("--augment", action="store_true",
+                   help="rig-consistent flip and photometric jitter")
     p.add_argument("--debug", action="store_true",
                    help="autograd anomaly detection on, and host-side "
                         "validation of the first batch's graph")
@@ -406,6 +511,11 @@ def main(argv=None):
     if args.train_scenes is not None:
         cfg = cfg.replace(data=dataclasses.replace(
             cfg.data, num_train_scenes=args.train_scenes))
+    if args.dataset_root is not None:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, dataset_root=args.dataset_root))
+    if args.augment:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, augment=True))
     if args.dtype is not None:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dtype=args.dtype))

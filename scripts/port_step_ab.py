@@ -19,7 +19,11 @@ batches (numpy renderer and graph builder, but for bsp2):
   after 30) of the path's softmax kernel on the first train batch's ELL
   lists, with seeded random operands: the attention weights
   (``bsp.attention_weights``, dk the model's) on bsp2, the ELL softmax
-  (``ell.softmax``) on ell.
+  (``ell.softmax``) on ell;
+- on the bsp2 path, the whole loop: ``train.train`` on its config (the
+  native host side, the default fused attention) for LOOP_STEPS steps,
+  the median of the records' ``step_time_s`` after the first (host clock,
+  the next batch's render, graph build and copy included).
 
 Paths: "mean", "max" and "attention" (``dynamic_swarm`` with that
 ``model.fusion``), "ell" (``dynamic_swarm`` with the plan-free ELL
@@ -52,6 +56,7 @@ from pathlib import Path
 import numpy as np
 
 REPS, INNER = 5, 10
+LOOP_STEPS = 12
 PATHS = ("mean", "max", "attention", "ell", "block", "hideg", "bsp2")
 
 
@@ -165,10 +170,17 @@ def turn(root: Path, path: str) -> dict:
         logits = torch.from_numpy(rng.normal(size=tuple(
             g.ell_src.shape)).astype(np.float32)).to(dev)
         kernel = busy_ms(lambda: ell.softmax(logits, g.ell_mask), n=30)
+    loop = None
+    if path == "bsp2":
+        loop_cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                         log_every=1))
+        _, records = train.train(loop_cfg, num_steps=LOOP_STEPS, device=dev)
+        loop = statistics.median(r["step_time_s"] for r in records[1:])
     return {"root": str(root), "path": path, "step_ms": times,
             "median_ms": statistics.median(times), "busy_ms_per_step": busy,
             "serve_ms": serve, "serve_median_ms": statistics.median(serve),
             "busy_ms_per_request": serve_busy, "kernel_ms": kernel,
+            "loop_step_s": loop,
             "loadavg": os.getloadavg(), "torch_threads": torch.get_num_threads()}
 
 
@@ -176,7 +188,7 @@ def ab(parent: Path, change: Path, paths) -> dict:
     turns = [("parent", parent), ("change", change), ("change", change),
              ("parent", parent)]
     keys = ("median_ms", "busy_ms_per_step", "serve_median_ms",
-            "busy_ms_per_request", "kernel_ms")
+            "busy_ms_per_request", "kernel_ms", "loop_step_s")
     out = {}
     for path in paths:
         res = {key: {"parent": [], "change": []} for key in keys}
@@ -220,7 +232,9 @@ def main() -> int:
                                     f"batch latency, median of {REPS} x 20; "
                                     "kernel: the path's softmax kernel, "
                                     "profiler device time per call (bsp2, "
-                                    "ell); one process per turn",
+                                    "ell); loop: train() step, host clock, "
+                                    f"median of steps 2-{LOOP_STEPS} "
+                                    "(bsp2); one process per turn",
                           "nvidia_smi": smi}))
         return 0
     if args.root is None:

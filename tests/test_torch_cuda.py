@@ -960,3 +960,69 @@ def test_resume_and_from_checkpoint_on_the_card(dev, tmp_path):
     want = Predictor(cfg, straight.model, graph=batch["graph"])(batch["images"])
     for k in ("depth", "seg"):
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_exported_artifact_launches_the_kernel_on_the_card(dev, tmp_path):
+    """The small dynamic_swarm's Predictor exported on the card, loaded on
+    the card: the fused attention launched once a request, the Predictor's
+    outputs bit for bit; the same artifact also loads on the CPU."""
+    from mrp_gnn_tpu_torch import serving as TS
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+    from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
+    from torch_small import small
+    cfg = small(get_config("dynamic_swarm"), impl="auto")
+    batch = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))
+    model = MultiRobotPerceptionNet(
+        cfg.model, ops_impl="auto",
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    pred = TS.Predictor(cfg, model, graph=batch["graph"])
+    path = str(tmp_path / "a.pt2")
+    meta = TS.export_predictor(pred, path)
+    assert meta["route"] == "kernels"
+    assert meta["ops"] == ["mrp_gnn_torch::fused_attention"]
+    infer = TS.load_exported(path)
+    before = bsp.launch_counts()
+    got = infer(batch["images"])
+    after = bsp.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"bsp_fused_attention": 1}
+    want = pred(batch["images"])
+    for k in ("depth", "seg"):
+        np.testing.assert_array_equal(got[k], want[k])
+    on_cpu = TS.load_exported(path, device="cpu")(batch["images"])
+    np.testing.assert_allclose(on_cpu["depth"], want["depth"], rtol=0,
+                               atol=1e-3)
+
+
+def test_placed_batches_equal_the_host_batches(dev):
+    """BatchPlacer on the card, on a producer thread: images, depth, seg
+    and every graph tensor read back equal to the host batch, the static
+    graph copied once, the step's stream waiting on each batch's event."""
+    from mrp_gnn_tpu_torch import train as TT
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import (TransformIterator,
+                                                 make_dataset)
+    from torch_small import small
+    for name in ("dynamic_swarm", "multitask_batched"):
+        cfg = small(get_config(name))
+        host = [b for _, b in zip(range(3), make_dataset(cfg.data, "train"))]
+        it = TransformIterator(iter(host), TT.BatchPlacer(dev))
+        graphs = []
+        for b in host:
+            images, depth, seg, graph = TT.batch_to_device(next(it), dev)
+            for got, k in ((images, "images"), (depth, "depth"),
+                           (seg, "seg")):
+                assert got.device.type == "cuda"
+                np.testing.assert_array_equal(got.cpu().numpy(), b[k])
+            seen = []
+            graph.apply(lambda t: seen.append(t.cpu()) or t)
+            want = []
+            b["graph"].apply(lambda t: want.append(t) or t)
+            assert len(seen) == len(want)
+            for x, y in zip(seen, want):
+                assert torch.equal(x, y)
+            graphs.append(graph)
+        it.close()
+        static = name == "multitask_batched"
+        assert (graphs[0] is graphs[2]) == static

@@ -141,6 +141,6 @@ def test_cli_restores_and_refuses(tmp_path, capsys):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         TE.main(["--config", "single_robot_depth", "--checkpoint_dir",
                  str(tmp_path / "empty"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue A"):
+    with pytest.raises(FileNotFoundError, match="dataset split dir missing"):
         TE.main(["--config", "single_robot_depth", "--dataset_root",
                  str(tmp_path), "--device", "cpu"])

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package.
+"""The port imports nothing of JAX, of the JAX package or of grain, and
+nothing at module level that the card's machine lacks (PIL).
 
 Static on purpose (an AST scan of every import statement): the test
 process has jax loaded already, so checking sys.modules would prove
@@ -11,13 +12,29 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mrp_gnn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "grain",
+             "mrp_gnn_tpu"}
+# Imported only inside the functions that need them (the .png branches of
+# data/disk.py, utils/viz.py's panels): never at module level.
+NOT_AT_MODULE_LEVEL = {"PIL"}
 FILES = sorted((ROOT / "mrp_gnn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-def _imported_roots(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _run_at_import(tree):
+    """Every node outside a function body: what importing the module runs."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+            yield node
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def _imported_roots(path: Path, module_level: bool = False):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in _run_at_import(tree) if module_level else ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield node.lineno, alias.name.split(".")[0]
@@ -36,9 +53,11 @@ def test_scan_covers_the_package():
     assert "mrp_gnn_tpu_torch/losses.py" in names
     assert "mrp_gnn_tpu_torch/train.py" in names
     assert "mrp_gnn_tpu_torch/data/pipeline.py" in names
-    for mod in ("native", "graph_native", "_native_loader"):
+    for mod in ("native", "graph_native", "_native_loader", "disk",
+                "grain_pipeline"):
         assert f"mrp_gnn_tpu_torch/data/{mod}.py" in names
-    assert len(names) >= 21
+    assert "mrp_gnn_tpu_torch/ops/library.py" in names
+    assert len(names) >= 24
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -46,3 +65,10 @@ def test_no_jax_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_module_level_imports_the_card_lacks(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path, True)
+           if mod in NOT_AT_MODULE_LEVEL]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"

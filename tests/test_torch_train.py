@@ -223,11 +223,20 @@ def test_train_loop_halts_on_a_nonfinite_loss():
 @pytest.mark.parametrize("change", [
     dict(parallel=dict(data_axis_size=2)), dict(data=dict(loader="grain"))],
     ids=["mesh", "grain"])
-def test_train_refuses_what_is_not_ported(change):
+def test_train_refuses_what_is_not_ported(change, monkeypatch):
+    """Mesh axes > 1 are not ported (A11); the worker loader is, and
+    refuses a process group of more than one process, as the JAX package
+    refuses more than one process."""
     cfg = get_config("dynamic_swarm")
     for part, kw in change.items():
         cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part),
                                                        **kw)})
+    if "data" in change:
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(ValueError, match="single-process only"):
+            TT.train(cfg, num_steps=1, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         TT.train(cfg, num_steps=1, device="cpu")
 
