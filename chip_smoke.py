@@ -1,7 +1,10 @@
-"""Drive the PyTorch port's serving, export, training and data paths on one
-CUDA card and check them.
+"""Drive the PyTorch port's serving, export, training, data and data x
+graph parallel paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --parallel-rank R WORLD STORE OUT`` is one rank
+of phase 10, which the script starts itself.)
 
 Seven paths through the fusion layer, each at the full width of a preset
 (64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, random
@@ -139,7 +142,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pipeline's; ``train()`` for ``LOOP_STEPS`` steps with the builtin
    loader, the worker loader, augmentation and 8 scene folders written by
    ``export_scenes`` (npy), each with finite losses, its step times and
-   the device's idle share over the loop.
+   the device's idle share over the loop;
+10. parallel (``phase_parallel``), on ``swarm_partitioned`` at full width
+   (4 scenes x 64 robots in radius 4, 256 nodes over a graph axis of 8):
+   8 ranks of this script (``--parallel-rank``), all on the one card and
+   joined by gloo (``--dist_backend gloo``: rows staged through pinned host
+   memory), each with its own node block, plan block and kernels. Held: the
+   world of 8 on a graph axis of 8 with real boundary rows; every call of
+   rows 3, 4 and 5 (``bsp.spmm``, ``bsp.sddmm``, ``bsp.spmm_t``) that the
+   partitioned fusion makes on a rank's shard within 1e-5 of its plain
+   version on the same tensors; the partitioned fusion's outputs and
+   gradients (attention with the boundary exchange overlapped and
+   serialised and with the all_gather one, mean, max) within 1e-5 of the
+   unpartitioned plain ops on the same card; ``train.train`` for 4 steps
+   with launch counts reset just before it and read just after: rows 3, 4
+   and 5 once per step on every rank and no other kernel; the first
+   step's loss terms within 1e-5 relative of one process training the same
+   config (its mesh shrunk to one rank), later steps printed beside them;
+   every rank's parameters bit for bit equal; a resume from the step-2
+   checkpoint over 8 ranks bit for bit the straight run; ``evaluate`` with
+   the context within 1e-4 of one process's evaluation of the same
+   weights; a 2 x 4 mesh's first step as the 1 x 8 run's; rank 0's
+   profile showing the three kernel bodies. Printed: the step time (CUDA
+   events on rank 0's stream, median) in turns with the value exchange
+   overlapped and serialised, beside one process's step; the host time in
+   the exchange and in the world sums; rank 0's profile of the transport
+   (host time of the gloo operations, device time of the copies); the
+   rows exchanged per shard; rank 0's device idle share. Eight ranks
+   sharing one card through host memory are not how a multi-card
+   deployment runs: these numbers are findings, not claims.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -2711,6 +2742,570 @@ def phase_data(dev, tag: dict) -> dict:
     return res
 
 
+# --- phase 10: data x graph parallelism over ranks sharing the card ----------
+
+PARALLEL_RANKS = 8          # swarm_partitioned's graph axis, one rank each
+PARALLEL_STEPS = 4          # the straight run; the resume repeats steps 3-4
+PARALLEL_DXG_STEPS = 2      # the 2 x 4 run (its first step is held)
+PARALLEL_TIMING_STEPS = 6   # steps timed per turn (turns: on, off, on, off)
+PARALLEL_TIMEOUT_S = 600
+PARALLEL_SEED = 13
+TOL_PARALLEL = 1e-5         # fusion (relative to max(1, max |want|)), terms
+# The kernel bodies one rank's attention train step must show: the SpMM's
+# vector form (D 8192), the wide SDDMM (dα, d 8192) and the transposed SpMM.
+PARALLEL_BODIES = ("spmm_vec_kernel", "sddmm_wide_kernel", "spmm_t_kernel")
+# Rows 3, 4 and 5 as the partitioned fusion calls them, by their plain
+# versions, against which each call on a shard is held.
+PARALLEL_WRAPPERS = {"spmm": bsp.spmm_reference, "sddmm": bsp.sddmm_reference,
+                     "spmm_t": bsp.spmm_t_reference}
+PARALLEL_CASES = (("attention", "boundary", True),
+                  ("attention", "boundary", False),
+                  ("attention", "all_gather", True),
+                  ("mean", "boundary", True), ("max", "boundary", True))
+
+
+def parallel_config(data: int = 1, graph: int = 8, overlap: bool = True,
+                    checkpoint_dir: str = ""):
+    """``swarm_partitioned`` at full width (64x64, encoder 32/64/128, one
+    attention fusion layer, 6 classes, f32; 4 scenes x 64 robots in radius
+    4 = 256 nodes), on a data x graph mesh."""
+    cfg = get_config("swarm_partitioned")
+    return cfg.replace(
+        train=dataclasses.replace(cfg.train, log_every=1, checkpoint_every=2,
+                                  checkpoint_dir=checkpoint_dir),
+        parallel=dataclasses.replace(cfg.parallel, data_axis_size=data,
+                                     graph_axis_size=graph,
+                                     overlap_boundary_exchange=overlap))
+
+
+def parallel_inputs(cfg) -> dict:
+    """Seeded q, k, v of the whole batch at the preset's fusion widths."""
+    m = cfg.model
+    s = m.bottleneck_stride
+    V = cfg.data.scenes_per_batch * cfg.data.num_robots
+    D = (m.image_size[0] // s) * (m.image_size[1] // s) * m.encoder_channels[-1]
+    rng = np.random.default_rng(PARALLEL_SEED)
+    return {k: rng.normal(size=(V, w)).astype(np.float32)
+            for k, w in (("q", m.attention_dim), ("k", m.attention_dim),
+                         ("v", D))}
+
+
+def param_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for _, p in sorted(model.state_dict().items()):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _HostTimers:
+    """Host seconds spent in the halo exchange (posting: the send gather,
+    the pinned copy and its wait, and the batched isend/irecv; waiting for
+    the receive and its copy back; the backward's reverse exchange) and in
+    the world sums (loss terms, gradients), by wrapping them for a
+    measurement."""
+
+    def __init__(self):
+        from mrp_gnn_tpu_torch.parallel import fused, mesh
+        self.seconds = {"exchange": 0.0, "world_sums": 0.0}
+        self._saved = [(fused._Halo, "_swap"), (fused._Pending, "wait"),
+                       (mesh.Mesh, "sum"), (mesh.Mesh, "all_gather")]
+        self._orig = [getattr(c, n) for c, n in self._saved]
+        for (cls, name), orig in zip(self._saved, self._orig):
+            key = "world_sums" if cls is mesh.Mesh else "exchange"
+            setattr(cls, name, self._timed(orig, key))
+
+    def _timed(self, fn, key):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[key] += time.perf_counter() - t0
+        return wrapped
+
+    def close(self):
+        for (cls, name), orig in zip(self._saved, self._orig):
+            setattr(cls, name, orig)
+
+
+class _ShardCalls:
+    """While open, each call of ``bsp.spmm``, ``bsp.sddmm`` and
+    ``bsp.spmm_t`` (rows 3, 4 and 5) is held against its plain version on
+    the same shard tensors, as the call returns; ``errors`` keeps, by
+    wrapper, the calls and the largest max |got - want| over
+    max(1, max |want|)."""
+
+    def __init__(self):
+        self.errors = {}
+        self._orig = {n: getattr(bsp, n) for n in PARALLEL_WRAPPERS}
+        for name, fn in self._orig.items():
+            setattr(bsp, name, self._held(name, fn))
+
+    def _held(self, name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            want = PARALLEL_WRAPPERS[name](*args, **{
+                k: v for k, v in kw.items() if k != "view"})
+            err = float((out.float() - want.float()).abs().max()
+                        / max(1.0, float(want.abs().max())))
+            n, worst = self.errors.get(name, (0, 0.0))
+            self.errors[name] = (n + 1, max(worst, err))
+            return out
+        wrapped.launches = 0    # the wrapper counts itself (not a launch
+        return wrapped          # of the main path: not read)
+
+    def close(self):
+        for name, fn in self._orig.items():
+            setattr(bsp, name, fn)
+
+
+def _rank_fusion(pctx, dev, out_dir: str) -> dict:
+    """The partitioned fusion's forward and backward of sum(out ** 2) on
+    this rank's rows of the seeded inputs, for each case, with every call
+    of rows 3-5 held against its plain version (:class:`_ShardCalls`);
+    rank 0 writes the gathered outputs and gradients. Returns every rank's
+    shard checks, gathered."""
+    from mrp_gnn_tpu_torch.ops import dispatch
+    from mrp_gnn_tpu_torch.parallel.fused import make_partitioned_edge_fusion
+    x = parallel_inputs(parallel_config())
+    lo, hi = pctx.local_node_range(x["v"].shape[0])
+    ops = dispatch.get_ops("pallas", dev)
+    res = {}
+    held = _ShardCalls()
+    try:
+        for agg, exchange, overlap in PARALLEL_CASES:
+            fn = make_partitioned_edge_fusion(pctx.mesh, pctx.plan, exchange,
+                                              overlap)
+            t = {k: torch.tensor(v[lo:hi], device=dev, requires_grad=True)
+                 for k, v in x.items()}
+            q, k = (t["q"], t["k"]) if agg == "attention" else (None, None)
+            out = fn(ops, agg, q, k, t["v"], None)
+            (out ** 2).sum().backward()
+            tag = f"{agg}-{exchange}-{'overlap' if overlap else 'serial'}"
+            parts = {"out": out.detach()}
+            parts.update({f"d{k}": t[k].grad for k in ("q", "k", "v")
+                          if t[k].grad is not None})
+            for key, val in parts.items():
+                res[f"{tag}/{key}"] = torch.cat(
+                    pctx.mesh.all_gather(val)).cpu().numpy()
+    finally:
+        held.close()
+    if pctx.mesh.rank == 0:
+        np.savez(os.path.join(out_dir, "fusion.npz"), **res)
+    shards = [None] * pctx.mesh.size
+    torch.distributed.all_gather_object(shards, held.errors)
+    return {"cases": len(PARALLEL_CASES), "shard_kernels": shards}
+
+
+def _timed_step(step, dev) -> tuple:
+    """(CUDA-event ms on the device's stream, host-clock ms) of one call of
+    ``step`` whose terms are read back (host clock alone on the CPU)."""
+    _sync(dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+    t0 = time.perf_counter()
+    terms = step()
+    float(terms["total"])
+    if cuda:
+        end.record()
+    _sync(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return (start.elapsed_time(end) if cuda else host_ms), host_ms
+
+
+def _rank_timings(dev, out: dict, profile: bool) -> None:
+    """Step time (median of PARALLEL_TIMING_STEPS by CUDA events on this
+    rank's stream, every rank in step) with the value exchange overlapped
+    and serialised in turns, the host time in the exchange and in the world
+    sums over the steps' host clock, and rank 0's profile of one step."""
+    turns = []
+    for overlap in (True, False, True, False):
+        cfg = parallel_config(overlap=overlap)
+        pctx = train.make_parallel(cfg, dev)
+        state = train.create_train_state(cfg, dev, pctx.edge_fusion_fn)
+        pctx.shard_state(state)
+        step = train.make_train_step(cfg, state.model, state.optimizer,
+                                     mesh=pctx.mesh)
+        d = cfg.data
+        batch = next(iter(make_dataset(
+            d, "train", node_range=pctx.local_node_range(
+                d.scenes_per_batch * d.num_robots))))
+        args = pctx.shard_batch(batch)
+        for _ in range(2):
+            step(state, *args)
+        _sync(dev)
+        timers = _HostTimers()
+        try:
+            times = [_timed_step(lambda: step(state, *args)[1], dev)
+                     for _ in range(PARALLEL_TIMING_STEPS)]
+        finally:
+            timers.close()
+        host_s = sum(t[1] for t in times) / 1e3
+        turns.append({"overlap": overlap,
+                      "step_ms": statistics.median(t[0] for t in times),
+                      "exchange_share": timers.seconds["exchange"] / host_s,
+                      "world_sums_share": timers.seconds["world_sums"] / host_s})
+        if len(turns) == 1:
+            out["profile"] = _rank_profile(lambda: step(state, *args), dev,
+                                           profile)
+    out["timings"] = turns
+
+
+def _rank_profile(fn, dev, profile: bool, n: int = 3, tries: int = 3):
+    """Rank 0's device activity over ``n`` steps (after ``n`` warm-up steps
+    in the trace, as :func:`profiled` takes them), while every other rank
+    runs the same steps unprofiled; a trace that missed device activity is
+    repeated, the decision broadcast so all ranks step together."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import schedule
+    use = profile and dev.type == "cuda"
+    for _ in range(tries):
+        res = None
+        if use:
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA],
+                               schedule=schedule(wait=0, warmup=1, active=1,
+                                                 repeat=1)) as prof:
+                for _ in range(n):
+                    fn()
+                _sync(dev)
+                prof.step()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                _sync(dev)
+                wall_us = (time.perf_counter() - t0) * 1e6
+                prof.step()
+            averages = prof.key_averages()
+            events = [e for e in averages
+                      if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")]
+            if events and all(e.count % n == 0 for e in events):
+                busy = sum(e.self_device_time_total for e in events)
+                names = [e.key for e in events]
+                # the profiler's view of the transport: host time of the
+                # gloo operations (the collectives and the exchange's sends
+                # and receives) and device time of the copies
+                comm = {e.key: e.cpu_time_total / n / 1e3 for e in averages
+                        if e.device_type == DeviceType.CPU
+                        and e.key.startswith("gloo:")}
+                copies = {e.key: e.self_device_time_total / n / 1e3
+                          for e in events if e.key.startswith("Memcpy")}
+                res = {"bodies": [b for b in PARALLEL_BODIES
+                                  if any(f"::{b}<" in k or f"::{b}(" in k
+                                         for k in names)],
+                       "device_busy_ms_per_step": busy / n / 1e3,
+                       "rank0_device_idle_share": 1 - busy / wall_us,
+                       "step_wall_ms": wall_us / n / 1e3,
+                       "gloo_host_ms_per_step": comm,
+                       "copies_device_ms_per_step": copies}
+        else:
+            for _ in range(2 * n):
+                fn()
+            _sync(dev)
+        flag = [res is not None or not use]
+        torch.distributed.broadcast_object_list(flag, src=0)
+        if flag[0]:
+            return res
+    raise AssertionError(f"rank 0's profile missed device activity in "
+                         f"{tries} traces")
+
+
+def parallel_rank_main(argv) -> int:
+    """One rank of phase 10: ``chip_smoke.py --parallel-rank R WORLD STORE
+    OUT [DEVICE]``. Joins the gloo group, then runs the fusion cases, the
+    straight 4-step ``train.train`` (launch counts reset just before it and
+    read just after), the resume from its step-2 checkpoint, ``evaluate``
+    with the context, the 2 x 4 run and the timings; rank 0 writes
+    ``OUT/rank0.json``."""
+    import shutil
+    from mrp_gnn_tpu_torch.parallel import launch
+    from mrp_gnn_tpu_torch.parallel.partition import (boundary_fraction,
+                                                      exchange_rows)
+    rank, world, store, out_dir = (int(argv[0]), int(argv[1]), argv[2],
+                                   argv[3])
+    torch.set_num_threads(1)
+    launch.initialize(f"file://{store}", world, rank, backend="gloo")
+    dev = launch.rank_device(argv[4] if len(argv) > 4 else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"world": torch.distributed.get_world_size(), "device": str(dev)}
+    t0 = time.perf_counter()
+
+    def mark(name):
+        torch.distributed.barrier()
+        out.setdefault("seconds", {})[name] = time.perf_counter() - t0
+
+    ck = os.path.join(out_dir, "ck")
+    cfg = parallel_config(checkpoint_dir=ck)
+    pctx = train.make_parallel(cfg, dev)
+    out["graph_axis"] = pctx.mesh.graph
+    out["boundary_fraction"] = boundary_fraction(pctx.plan)
+    out["exchange_rows"] = exchange_rows(pctx.plan)
+    out["fusion"] = _rank_fusion(pctx, dev, out_dir)
+    mark("fusion")
+    # the main path of the phase: counts reset just before, read just after
+    bsp.reset_launches()
+    state, records = train.train(cfg, num_steps=PARALLEL_STEPS, device=dev)
+    launches = [None] * world
+    torch.distributed.all_gather_object(launches, bsp.launch_counts())
+    out["launches"] = launches
+    out["straight"] = _train_terms(records, range(1, PARALLEL_STEPS + 1))
+    digests = [None] * world
+    torch.distributed.all_gather_object(digests, param_digest(state.model))
+    out["digests"] = digests
+    if rank == 0:
+        torch.save(state.model.state_dict(), os.path.join(out_dir, "final.pt"))
+        os.makedirs(os.path.join(out_dir, "resume"))
+        shutil.copy(os.path.join(ck, "ckpt_2.pt"),
+                    os.path.join(out_dir, "resume"))
+    mark("train")
+    _, records = train.train(cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=os.path.join(out_dir, "resume"))),
+        num_steps=PARALLEL_STEPS, device=dev)
+    out["resumed"] = _train_terms(records, range(1, PARALLEL_STEPS + 1))
+    mark("resume")
+    out["eval"] = evaluate(cfg, state.model, pctx=pctx)
+    mark("eval")
+    _, records = train.train(parallel_config(data=2, graph=4),
+                             num_steps=PARALLEL_DXG_STEPS, device=dev)
+    out["dxg"] = _train_terms(records, range(1, PARALLEL_DXG_STEPS + 1))
+    mark("dxg")
+    _rank_timings(dev, out, profile=rank == 0)
+    mark("timings")
+    if rank == 0:
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tail(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()[-4000:]
+    except OSError:
+        return "(no log)"
+
+
+def spawn_parallel_ranks(out_dir: str, device: str | None = None) -> None:
+    """PARALLEL_RANKS processes of this script in rank mode, all started
+    together; waits with a timeout, stops at the first rank that fails,
+    kills the rest, and raises with the failing ranks' logs."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    store = os.path.join(out_dir, "store")
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(PARALLEL_RANKS)]
+    procs = []
+    for r in range(PARALLEL_RANKS):
+        cmd = [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+               str(r), str(PARALLEL_RANKS), store, out_dir]
+        if device is not None:
+            cmd.append(device)
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(cmd, stdout=log,
+                                          stderr=subprocess.STDOUT, env=env))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError("\n".join(
+            f"rank {r} exit {procs[r].returncode} (killed at the timeout or "
+            f"after another rank failed when negative):\n{_tail(logs[r])}"
+            for r in bad))
+
+
+def _close(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _check_shard_kernels(shards: list) -> dict:
+    """Every rank's calls of rows 3-5 in the fusion cases: each wrapper
+    called on every rank, every call within TOL_PARALLEL of its plain
+    version; returns the largest error by wrapper."""
+    worst = {}
+    for r, errors in enumerate(shards):
+        for name in PARALLEL_WRAPPERS:
+            n, err = errors.get(name, (0, 0.0))
+            if n == 0 or not err <= TOL_PARALLEL:
+                raise AssertionError(f"rank {r}'s bsp.{name} on its shard: "
+                                     f"{n} call(s), max err {err}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def _parallel_reference_fusion(dev, fusion: dict) -> dict:
+    """Each case's gathered output and gradients against the unpartitioned
+    port's plain ops on the card, on the same graph as an ELL batch (the
+    block tag dropped)."""
+    from mrp_gnn_tpu_torch.ops import dispatch
+    from mrp_gnn_tpu_torch.parallel.context import replica_graph_for
+    cfg = parallel_config()
+    g = dataclasses.replace(replica_graph_for(cfg), scene_adj=None,
+                            scene_stride=0).to(dev)
+    x = parallel_inputs(cfg)
+    ops = dispatch.get_ops("xla", dev)
+    errs = {}
+    for agg, exchange, overlap in PARALLEL_CASES:
+        tag = f"{agg}-{exchange}-{'overlap' if overlap else 'serial'}"
+        t = {k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in x.items()}
+        q, k = (t["q"], t["k"]) if agg == "attention" else (None, None)
+        out = default_edge_fusion(ops, agg, q, k, t["v"], g)
+        (out ** 2).sum().backward()
+        want = {"out": out.detach()}
+        want.update({f"d{k}": t[k].grad for k in ("q", "k", "v")
+                     if t[k].grad is not None})
+        for key, w in want.items():
+            err = _close(fusion[f"{tag}/{key}"], w.cpu().numpy())
+            if not err <= TOL_PARALLEL:
+                raise AssertionError(f"partitioned {tag} {key}: {err} "
+                                     f"(relative to max(1, max |want|))")
+            errs[f"{tag}/{key}"] = err
+    return errs
+
+
+def _rel_terms(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want if k != "step")
+
+
+def phase_parallel(dev, tag: dict, rank_device: str | None = None) -> dict:
+    """Phase 10: ``swarm_partitioned`` over PARALLEL_RANKS gloo ranks on the
+    one card (``spawn_parallel_ranks``), held to the port on one process:
+    every call of rows 3-5 in the fusion cases within TOL_PARALLEL of its
+    plain version on the rank's shard tensors; the fusion cases within
+    TOL_PARALLEL of the unpartitioned plain ops; the straight run's
+    launches on every rank (rows 3, 4 and 5 once per step, no other
+    kernel); its first step's terms within TOL_PARALLEL relative of
+    one process's run of the same config (its mesh shrunk to one rank),
+    later steps printed beside them; every rank's parameters bit for bit
+    equal; the resume from step 2 bit for bit the straight run; evaluation
+    under the context within TOL_EVAL of one process's evaluation of the
+    same weights; the 2 x 4 run's first step as the straight run's; then
+    the numbers (step times, the exchange's share, rows exchanged, overlap
+    on against off, rank 0's device idle share)."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        t0 = time.perf_counter()
+        spawn_parallel_ranks(tmp, rank_device)
+        ranks_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            got = json.load(f)
+        fusion = dict(np.load(os.path.join(tmp, "fusion.npz")))
+        final = torch.load(os.path.join(tmp, "final.pt"), map_location=dev,
+                           weights_only=True)
+    log(f"[parallel] {PARALLEL_RANKS} ranks in {ranks_s:.2f} s (their "
+        f"barriers: {json.dumps(got['seconds'])})")
+    if (got["world"], got["graph_axis"]) != (PARALLEL_RANKS, PARALLEL_RANKS):
+        raise AssertionError(f"ran with world {got['world']} and graph axis "
+                             f"{got['graph_axis']}")
+    if not got["boundary_fraction"] > 0:
+        raise AssertionError("the plan has no boundary rows")
+    log(f"[parallel] world {got['world']}, graph axis {got['graph_axis']}, "
+        f"boundary fraction {got['boundary_fraction']:.6f}, rows received "
+        f"per shard: {json.dumps(got['exchange_rows'])}")
+    shard = _check_shard_kernels(got["fusion"]["shard_kernels"])
+    log(f"[parallel] rows 3-5 on every rank's shard vs their plain versions: "
+        f"max err {json.dumps(shard)}")
+    errs = _parallel_reference_fusion(dev, fusion)
+    log(f"[parallel] fusion vs the unpartitioned plain ops: max err "
+        f"{max(errs.values()):.3e} over {len(errs)} outputs and gradients")
+    want = {"bsp_spmm": PARALLEL_STEPS, "bsp_sddmm": PARALLEL_STEPS,
+            "bsp_spmm_t": PARALLEL_STEPS}
+    want = {k: want.get(k, 0) for k in bsp.KERNELS}
+    for r, counts in enumerate(got["launches"]):
+        if counts != want:
+            raise AssertionError(f"rank {r}'s launches over {PARALLEL_STEPS} "
+                                 f"steps: {counts}, expected {want}")
+    log(f"[parallel] launches per rank per step, on each of the "
+        f"{len(got['launches'])} ranks: bsp_spmm 1, bsp_sddmm 1, bsp_spmm_t 1 "
+        f"({json.dumps({k: v for k, v in want.items() if v})} over "
+        f"{PARALLEL_STEPS} steps)")
+    if len(set(got["digests"])) != 1:
+        raise AssertionError(f"parameters differ across ranks: {got['digests']}")
+    if got["resumed"] != got["straight"][2:]:
+        raise AssertionError(f"resume {got['resumed']} is not the straight "
+                             f"run {got['straight'][2:]}")
+    log("[parallel] every rank's parameters equal bit for bit; the resume "
+        "from step 2 repeats steps 3-4 bit for bit")
+    # one process, the same config: the mesh shrinks to one rank
+    t0 = time.perf_counter()
+    state, records = train.train(parallel_config(), num_steps=PARALLEL_STEPS,
+                                 device=dev)
+    single = _train_terms(records, range(1, PARALLEL_STEPS + 1))
+    single_s = time.perf_counter() - t0
+    for name, run in (("1 x 8", got["straight"]), ("2 x 4", got["dxg"])):
+        err = _rel_terms(run[0], single[0])
+        if not err <= TOL_PARALLEL:
+            raise AssertionError(f"{name} step 1 {run[0]} vs one process "
+                                 f"{single[0]}: {err}")
+        log(f"[parallel] {name} first step within {err:.3e} of one process")
+    for a, b in zip(got["straight"], single):
+        log(json.dumps({"metric": "parallel_terms", "step": a["step"],
+                        "ranks": a, "one_process": b}))
+    state.model.load_state_dict(final)
+    ev = evaluate(parallel_config(), state.model)
+    for k in ("rmse", "abs_rel", "delta1", "delta2", "delta3", "miou"):
+        bad = abs(got["eval"][k] - ev[k]) > TOL_EVAL_ABS + TOL_EVAL_REL * abs(ev[k])
+        if bad:
+            raise AssertionError(f"eval {k}: ranks {got['eval'][k]}, one "
+                                 f"process {ev[k]}")
+    log(json.dumps({"metric": "parallel_eval", "ranks": got["eval"],
+                    "one_process": ev}))
+    # the one-process step at the same config, timed as the ranks time it
+    cfg = parallel_config()
+    step_state = train.create_train_state(cfg, dev)
+    step = train.make_train_step(cfg, step_state.model, step_state.optimizer)
+    args = train.batch_to_device(next(iter(make_dataset(cfg.data, "train"))),
+                                 dev)
+    for _ in range(2):
+        step(step_state, *args)
+    times = [_timed_step(lambda: step(step_state, *args)[1], dev)[0]
+             for _ in range(PARALLEL_TIMING_STEPS)]
+    if dev.type == "cuda" and got["profile"]["bodies"] != list(PARALLEL_BODIES):
+        raise AssertionError(f"rank 0's step ran {got['profile']['bodies']}, "
+                             f"expected {PARALLEL_BODIES}")
+    log(json.dumps({
+        "metric": "parallel_step", "ranks": PARALLEL_RANKS,
+        "transport": "gloo through pinned host memory, 8 ranks sharing one "
+                     "card (not how a multi-card deployment runs)",
+        "timing": "step_ms: CUDA events on rank 0's stream (one process: "
+                  "its own), median; shares: host time in the exchange and "
+                  "in the world sums over the steps' host clock",
+        "turns": got["timings"], "one_process_step_ms":
+            statistics.median(times),
+        "profile": got.get("profile"), "one_process_train_s": single_s,
+        **tag}))
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.2f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2794,6 +3389,8 @@ def main() -> int:
         phase_export(dev, serve, {p: v[1] for p, v in paths.items()}, tag)
     with phase("data"):
         phase_data(dev, tag)
+    with phase("parallel"):
+        phase_parallel(dev, tag)
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",
@@ -2814,4 +3411,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank_main(sys.argv[2:]))
     sys.exit(main())

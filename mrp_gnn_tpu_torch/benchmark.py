@@ -20,8 +20,9 @@ CLI:
   python -m mrp_gnn_tpu_torch.benchmark --what fusion --nodes 8192
   python -m mrp_gnn_tpu_torch.benchmark --what train --config dynamic_swarm
   python -m mrp_gnn_tpu_torch.benchmark --what mfu --config dynamic_swarm
-The multi-device benches (``scaling``, ``overlap``) wait for the port's
-parallelism (ROADMAP.md, queue A item 11).
+The multi-device benches (``scaling``, ``overlap``) are not ported yet: they
+are the multi-device half of the benchmark (ROADMAP.md, queue A item 12),
+which drives the mesh of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -414,8 +415,8 @@ def main(argv=None) -> list:
     args = p.parse_args(argv)
     if args.what in ("scaling", "overlap"):
         raise NotImplementedError(
-            f"--what {args.what} needs the port's parallelism, which is not "
-            "ported yet (ROADMAP.md, queue A item 11)")
+            f"--what {args.what} is the benchmark's multi-device half, not "
+            "ported yet (ROADMAP.md, queue A item 12)")
     device = resolve_device(args.device)
 
     recs = []

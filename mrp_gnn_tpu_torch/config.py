@@ -8,8 +8,10 @@ package's values; in this package they mean:
 - ``"pallas"``: the hand-written CUDA kernels (``ops/bsp.py``);
 - ``"auto"``: the kernels when the tensors are on CUDA, the plain ops on CPU.
 
-Fields that only the JAX package acts on yet (the mesh axes) are kept so
-the dataclasses stay identical. ``DataConfig.loader`` "grain" selects the
+The data and graph mesh axes run on ``torch.distributed`` ranks, one
+process per mesh position (``parallel/``); the fields that only the JAX
+package acts on yet (``model_axis_size`` > 1, ``spatial_sharding``) are
+kept so the dataclasses stay identical, and the port refuses them. ``DataConfig.loader`` "grain" selects the
 port's multi-worker loader (``data/grain_pipeline.py``, on
 ``torch.utils.data.DataLoader``).
 """
@@ -128,34 +130,33 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     # Mesh axes: data (scene-graph batch shards) x graph (edge partitions)
-    # x model (tensor-parallel channel shards; parallel/tp.py).
+    # x model (channel shards; not ported, refused). In the port each mesh
+    # position is one torch.distributed rank (parallel/mesh.py).
     data_axis_size: int = 1
     graph_axis_size: int = 1
     model_axis_size: int = 1
-    # Use the "model" axis for spatial (image-H) activation sharding instead
-    # of channel tensor parallelism — the SP analog for dense feature maps
-    # (GSPMD inserts conv halo exchanges). Mutually exclusive with TP param
-    # sharding; params stay replicated.
+    # The JAX package shards image rows over the "model" axis with it; not
+    # ported, refused (ROADMAP.md, queue A item 11).
     spatial_sharding: bool = False
     # Backend for the fusion ops: "xla" | "pallas".
     ops_impl: str = "xla"
     # Boundary feature exchange for the partitioned fusion (config 5):
-    # "boundary" = send/recv plan, all_to_all of only the rows each peer's
-    # boundary edges reference (contract path, BASELINE.json:5);
-    # "all_gather" = legacy full-value gather (kept for A/B benchmarking).
+    # "boundary" = per-delta rings of batched isend/irecv carrying only the
+    # rows each peer's boundary edges reference (parallel/fused.py);
+    # "all_gather" = every rank gathers the whole replica (the A/B control).
     boundary_exchange: str = "boundary"
-    # Overlap boundary feature exchange with local aggregation (config 5):
-    # issue the value collective before the local partial aggregation so XLA
-    # hides the ICI transfer; False serializes it after (the A/B control).
+    # Overlap the value exchange with the local aggregate (config 5): post
+    # it before the local aggregate and wait after it; False posts it after
+    # (the A/B control).
     overlap_boundary_exchange: bool = True
     # DYNAMIC partitioned streams whose per-shard local in-degree exceeds
     # the 128-column kernel cap: pinned length for the per-shard
     # row-expanded tile-pair plans (PlanCapacities.xp_pairs — the opt-in
-    # that keeps the local aggregate on the expanded Pallas kernels
-    # instead of the XLA gather fallback). 0 = fallback (with a one-time
+    # that keeps the local aggregate on the kernels over the expanded view
+    # instead of the plain ELL gather). 0 = the plain path (with a one-time
     # warning); the expanded-plan length is not subset-monotone, so only
-    # the caller can bound their topology family (docs/kernels.md) — a
-    # violating batch raises at plan build. Static plans need no opt-in.
+    # the caller can bound their topology family — a violating batch
+    # raises at plan build. Static plans need no opt-in.
     expanded_plan_pairs: int = 0
 
 

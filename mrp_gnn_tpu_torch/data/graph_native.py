@@ -1,15 +1,17 @@
 """ctypes bridge to the native C++ graph-plan builder
 (``native/graphbuild.cc``).
 
-Port of ``mrp_gnn_tpu/data/graph_native.py`` (``batch_from_positions_native``;
-the partition-plan builder comes with the partitioned path). Dynamic
-topologies rebuild the GraphBatch every batch from the robots' positions;
-the library does that on the input pipeline's thread. It is built from the
+Port of ``mrp_gnn_tpu/data/graph_native.py``: ``batch_from_positions_native``
+and ``partition_plan_arrays_native``. Dynamic topologies rebuild the
+GraphBatch (and, when partitioned, its partition plan) every batch from
+the robots' positions; the library does that on the input pipeline's
+thread. It is built from the
 unchanged source at first use (``_native_loader``, into ``data/_build/``).
 Its batches are bit-identical to the numpy builder's
 (``graph.build_graph_batch`` over ``graph.positions_radius_edges``); the
 transposed and row-expanded plans are derived from its arrays in numpy, as
-the JAX package does.
+the JAX package does; so are its partition plans to the numpy
+``parallel/partition.py::_plan_arrays``.
 """
 
 from __future__ import annotations
@@ -65,6 +67,16 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_int,
         i32p, i32p, u8p, i32p, u8p, i32p, i32p, i32p, i32p,
         np.ctypeslib.ndpointer(np.int32, shape=(1,)),
+    ]
+    lib.mrp_build_partition_plan.restype = ctypes.c_int
+    lib.mrp_build_partition_plan.argtypes = [
+        i32p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        i32p, i32p, ctypes.c_int, ctypes.c_int,
+        i32p, i32p, u8p, u8p,
+        i32p, i32p, i32p, i32p, u8p,
+        i32p, u8p,
+        i32p, i32p, i32p, i32p,
     ]
 
 
@@ -167,3 +179,103 @@ def batch_from_positions_native(scene_positions, radius, max_nodes,
         bsp_tile=tile,
         bsp_expanded=expanded,
     )
+
+
+_PART_ERRORS = {
+    -10: "shard edge count exceeds edges_per_shard capacity",
+    -11: "local in-degree exceeds ELL width capacity",
+    -12: "active delta outside capacity delta set",
+    -13: "per-delta request rows exceed capacity width",
+    -14: "boundary edge count exceeds remote_edges capacity",
+    -15: "tile pairs exceed bsp_pairs capacity",
+}
+
+
+def partition_plan_arrays_native(src, dst, nps, num_shards, capacities):
+    """Native counterpart of ``parallel.partition._plan_arrays`` on its
+    capacity-pinned path (the per-batch plans of a dynamic stream).
+
+    src/dst: one replica's masked, replica-local, dst-sorted edges. Returns
+    the ``_plan_arrays`` dict (numpy, the source-major tile-pair plans
+    derived here) without the remote ELL and row-expanded arrays, which the
+    caller derives as for the numpy builder; None when the library is not
+    available, no capacities are given, or a tile divides nps but
+    ``capacities.bsp_pairs`` is 0 (the numpy builder sizes its own pair
+    count there). Raises ValueError on a capacity violation.
+    """
+    lib = LIBRARY.get()
+    if lib is None or capacities is None:
+        return None
+    P = num_shards
+    bsp_tile = next((t for t in (128, 64, 32, 16, 8) if nps % t == 0), 0)
+    if bsp_tile and not capacities.bsp_pairs:
+        return None
+    E_s = int(capacities.edges_per_shard)
+    L = int(capacities.ell_width)
+    Er = int(capacities.remote_edges)
+    n_deltas = len(capacities.deltas)
+    # ndpointer needs a real buffer even when there is no delta
+    deltas = np.ascontiguousarray(capacities.deltas or (0,), np.int32)
+    drows = np.ascontiguousarray(capacities.delta_rows or (0,), np.int32)
+    total_b = max(int(np.sum(capacities.delta_rows)), 1)
+    bsp_pairs = int(capacities.bsp_pairs) if bsp_tile else 0
+
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    src_g = np.zeros((P, E_s), np.int32)
+    dst_l = np.zeros((P, E_s), np.int32)
+    m = np.zeros((P, E_s), np.uint8)
+    lm = np.zeros((P, E_s), np.uint8)
+    send_idx = np.zeros((P, total_b), np.int32)
+    remote_dst = np.zeros((P, Er), np.int32)
+    remote_src_g = np.zeros((P, Er), np.int32)
+    remote_slot = np.zeros((P, Er), np.int32)
+    remote_mask = np.zeros((P, Er), np.uint8)
+    ell_src = np.zeros((P, nps, L), np.int32)
+    ell_mask = np.zeros((P, nps, L), np.uint8)
+    n_pd = max(bsp_pairs, 1)
+    pd = np.zeros((P, n_pd), np.int32)
+    ps = np.zeros((P, n_pd), np.int32)
+    fi = np.zeros((P, n_pd), np.int32)
+    la = np.zeros((P, n_pd), np.int32)
+
+    rc = lib.mrp_build_partition_plan(
+        src, dst, int(src.size), nps, P, E_s, L, Er, n_deltas, deltas, drows,
+        bsp_tile, bsp_pairs,
+        src_g.reshape(-1), dst_l.reshape(-1), m.reshape(-1), lm.reshape(-1),
+        send_idx.reshape(-1), remote_dst.reshape(-1),
+        remote_src_g.reshape(-1), remote_slot.reshape(-1),
+        remote_mask.reshape(-1), ell_src.reshape(-1), ell_mask.reshape(-1),
+        pd.reshape(-1), ps.reshape(-1), fi.reshape(-1), la.reshape(-1))
+    if rc != 0:
+        raise ValueError(f"native partition plan builder: "
+                         f"{_PART_ERRORS.get(rc, rc)}")
+
+    out = dict(
+        src_global=src_g, dst_local=dst_l, mask=m.astype(bool),
+        local_mask=lm.astype(bool), send_idx=send_idx,
+        remote_dst=remote_dst, remote_src_global=remote_src_g,
+        remote_slot=remote_slot, remote_mask=remote_mask.astype(bool),
+        ell_src=ell_src, ell_mask=ell_mask.astype(bool),
+        deltas=tuple(capacities.deltas),
+        delta_rows=tuple(capacities.delta_rows),
+        bsp_tile=bsp_tile,
+        bsp_pair_dst=None, bsp_pair_src=None,
+        bsp_pair_first=None, bsp_pair_last=None,
+        bsp_pair_dst_t=None, bsp_pair_src_t=None,
+        bsp_pair_first_t=None, bsp_pair_last_t=None,
+    )
+    if bsp_tile:
+        nt = nps // bsp_tile
+        per_t = [derive_bsp_pairs_t(pd[p], ps[p], la[p], nt,
+                                    max_pairs=bsp_pairs + nt)
+                 for p in range(P)]
+        out.update(
+            bsp_pair_dst=pd, bsp_pair_src=ps,
+            bsp_pair_first=fi, bsp_pair_last=la,
+            bsp_pair_dst_t=np.stack([t[0] for t in per_t]),
+            bsp_pair_src_t=np.stack([t[1] for t in per_t]),
+            bsp_pair_first_t=np.stack([t[2] for t in per_t]),
+            bsp_pair_last_t=np.stack([t[3] for t in per_t]),
+        )
+    return out

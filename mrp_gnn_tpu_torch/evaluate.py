@@ -7,8 +7,16 @@ the JAX package's output keys. The model runs in eval mode under
 ``ops_impl``, so on the CUDA card the fusion layer runs the kernels. The
 metric sums stay on the device and are read back once, at the end.
 
+With a ``ParallelContext`` (``pctx``; every rank calls ``evaluate``) each
+rank renders and evaluates its own node rows through the partitioned
+fusion, the metric sums are summed over the world in one all-reduce, and
+every rank returns the same metrics.
+
 CLI: python -m mrp_gnn_tpu_torch.evaluate --config dynamic_swarm \\
         --checkpoint_dir /tmp/ckpt [--device cpu]
+     (the train CLI's --coordinator / --num_processes / --process_id /
+     --dist_backend run it over a mesh, one process per rank; rank 0
+     prints)
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import torch
 from mrp_gnn_tpu_torch import metrics as M
 from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.data.pipeline import make_dataset
-from mrp_gnn_tpu_torch.train import batch_to_device, create_train_state
+from mrp_gnn_tpu_torch.models.fusion import GraphFusionLayer
+from mrp_gnn_tpu_torch.train import (add_multihost_args, batch_to_device,
+                                     create_train_state, init_multihost,
+                                     make_parallel)
 from mrp_gnn_tpu_torch.utils.platform import resolve_device
 
 
@@ -31,16 +42,12 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
     """Run the eval split (in order; the final partial batch padded and
     masked); returns a flat dict of float metrics.
 
-    pctx: the partitioned evaluation of the JAX package (a ParallelContext)
-    is not ported yet (ROADMAP.md, queue A item 11); anything but None
-    raises NotImplementedError.
+    pctx: a ``parallel.context.ParallelContext``: the model's fusion layers
+    run its partitioned fusion for the call, on this rank's node rows, and
+    the sums are global.
     dump_dir: write qualitative prediction panels (utils/viz.py) for the
-    first eval batch.
+    first eval batch (not under a pctx: no rank holds a whole batch).
     """
-    if pctx is not None:
-        raise NotImplementedError(
-            "partitioned evaluation is not ported yet (ROADMAP.md, queue A "
-            "item 11)")
     device = next(model.parameters()).device
     ops_impl = cfg.parallel.ops_impl
     num_classes = cfg.model.num_seg_classes
@@ -48,10 +55,22 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
     model.eval()
     acc = None
     n_batches = 0
+    node_range, swapped = None, []
+    if pctx is not None:
+        d = cfg.data
+        node_range = pctx.local_node_range(
+            d.max_nodes or d.scenes_per_batch * d.num_robots)
+        swapped = [(m, m.edge_fusion_fn) for m in model.modules()
+                   if isinstance(m, GraphFusionLayer)]
+        for m, _ in swapped:
+            m.edge_fusion_fn = pctx.edge_fusion_fn
     try:
         with torch.inference_mode():
-            for batch in make_dataset(cfg.data, "eval", shuffle=False):
-                images, depth, seg, graph = batch_to_device(batch, device)
+            for batch in make_dataset(cfg.data, "eval", shuffle=False,
+                                      node_range=node_range):
+                images, depth, seg, graph = (
+                    pctx.shard_batch(batch) if pctx is not None
+                    else batch_to_device(batch, device))
                 out = model(images, graph, ops_impl=ops_impl)
                 res = {}
                 if "depth" in out:
@@ -61,7 +80,7 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
                     res["conf"] = M.seg_confusion_accumulate(
                         out["seg_logits"], seg, graph.node_mask, num_classes)
                 acc = res if acc is None else M.tree_add(acc, res)
-                if dump_dir and n_batches == 0:
+                if dump_dir and n_batches == 0 and pctx is None:
                     from mrp_gnn_tpu_torch.utils.viz import save_panels
                     save_panels(dump_dir, batch["images"],
                                 {k: out[k].cpu().numpy() for k in
@@ -72,8 +91,15 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
                 n_batches += 1
     finally:
         model.train(was_training)
+        for m, fn in swapped:
+            m.edge_fusion_fn = fn
     if acc is None:
         raise ValueError("eval split produced no batches")
+    if pctx is not None:
+        leaves = []
+        M.tree_map(leaves.append, acc)
+        summed = iter(pctx.mesh.sum_all(leaves))
+        acc = M.tree_map(lambda _: next(summed), acc)
 
     metrics = {}
     if "depth" in acc:
@@ -102,25 +128,34 @@ def main(argv=None):
     p.add_argument("--dump_dir", default=None,
                    help="write qualitative prediction panels (PNG) here")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card; under a mesh "
+                        "the card of the rank's local rank)")
+    add_multihost_args(p)
     args = p.parse_args(argv)
+    init_multihost(args)
 
     cfg = get_config(args.config)
     if args.dataset_root is not None:
         cfg = cfg.replace(data=dataclasses.replace(
             cfg.data, dataset_root=args.dataset_root))
-    device = resolve_device(args.device)
+    pctx = make_parallel(cfg, args.device)
+    device = pctx.device if pctx is not None else resolve_device(args.device)
+    lead = pctx is None or pctx.mesh.rank == 0
     state = create_train_state(cfg, device)
     if args.checkpoint_dir:
         from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
         mgr = CheckpointManager(args.checkpoint_dir)
         if mgr.restore_latest(state) is None:
             raise FileNotFoundError(f"no checkpoint in {args.checkpoint_dir}")
-        print(f"[eval] restored step {mgr.latest_step}")
-    results = evaluate(cfg, state.model, dump_dir=args.dump_dir)
-    if args.dump_dir:
-        print(f"[eval] qualitative panels -> {args.dump_dir}")
-    print(json.dumps(results))
+        if lead:
+            print(f"[eval] restored step {mgr.latest_step}")
+    results = evaluate(cfg, state.model, pctx=pctx, dump_dir=args.dump_dir)
+    if lead:
+        if args.dump_dir and pctx is None:
+            print(f"[eval] qualitative panels -> {args.dump_dir}")
+        print(json.dumps(results))
+    if args.coordinator is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -49,8 +49,10 @@ class GraphBatch:
     ``scene_stride > 0`` tags a block-diagonal batch (every scene shares one
     topology at a fixed node stride), which takes the dense block path.
     ``bsp_expanded`` holds a :class:`BspExpandedPlan` when the ELL width
-    passes 128 and the builder made one; ``partition_plan`` is always None
-    in this port.
+    passes 128 and the builder made one; ``partition_plan`` holds one
+    rank's block of a dynamic batch's partition plan
+    (``parallel.partition.ShardPlan``, set by
+    ``ParallelContext.attach_plan``), else None.
     """
 
     edge_src: torch.Tensor
@@ -78,16 +80,17 @@ class GraphBatch:
 
     def to(self, device) -> "GraphBatch":
         """Copy of the batch with every tensor field on ``device``, those of
-        the row-expanded plan included."""
+        the row-expanded and the partition plan included."""
         return self.apply(lambda t: t.to(device))
 
     def apply(self, fn) -> "GraphBatch":
         """Copy of the batch with ``fn`` applied to every tensor field, those
-        of the row-expanded plan included."""
+        of the row-expanded plan and of the partition plan included."""
         moved = {f: fn(getattr(self, f)) for f in _TENSOR_FIELDS
                  if getattr(self, f) is not None}
-        if self.bsp_expanded is not None:
-            moved["bsp_expanded"] = self.bsp_expanded.apply(fn)
+        for f in ("bsp_expanded", "partition_plan"):
+            if getattr(self, f) is not None:
+                moved[f] = getattr(self, f).apply(fn)
         return dataclasses.replace(self, **moved)
 
     @property

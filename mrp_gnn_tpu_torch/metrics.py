@@ -88,3 +88,10 @@ def tree_add(a, b):
     if isinstance(a, dict):
         return {k: tree_add(a[k], b[k]) for k in a}
     return a + b
+
+
+def tree_map(fn, a):
+    """``fn`` of every leaf of a nested dict of tensors."""
+    if isinstance(a, dict):
+        return {k: tree_map(fn, v) for k, v in a.items()}
+    return fn(a)

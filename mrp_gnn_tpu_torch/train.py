@@ -24,13 +24,25 @@ loop copies the group. The data stream is the builtin pipeline or, with
 ``loader="grain"``, the multi-worker loader, whose position is saved with
 each checkpoint (``data_state``).
 
+Under a ("data", "graph") mesh (``ParallelConfig.data_axis_size`` x
+``graph_axis_size`` ranks, one process each, ``parallel/``), each rank
+renders and trains its own node rows through the partitioned fusion; the
+loss terms are global sums (``losses.py``), the gradients are summed over
+the world after the backward, and every rank runs the same clip and AdamW
+update. Rank 0 alone logs, writes TensorBoard and checkpoints; every rank
+restores from the same checkpoint.
+
 CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20 \
         [--checkpoint_dir /tmp/ckpt] [--eval_every 10] [--max_restarts 2] \
         [--dataset_root /data/scenes] [--augment]
+     python -m mrp_gnn_tpu_torch.train --config swarm_partitioned \
+        --coordinator localhost:29500 --num_processes 8 --process_id $ID \
+        --dist_backend gloo     # one process per rank
 
 The loop runs on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``). Not ported yet, raising
-NotImplementedError that names its ROADMAP.md item: mesh axes > 1 (A11).
+NotImplementedError that names its ROADMAP.md item: a model axis > 1 and
+``spatial_sharding`` (queue A item 11).
 """
 
 from __future__ import annotations
@@ -145,7 +157,7 @@ def create_train_state(cfg: ExperimentConfig, device,
 
 
 def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
-                    optimizer: AdamW) -> Callable:
+                    optimizer: AdamW, mesh=None) -> Callable:
     """``step(state, images, depth, seg, graph) -> (state, terms)``.
 
     With ``grad_accum_steps`` > 1, images/depth/seg carry a leading
@@ -154,6 +166,12 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
     gradients and terms are averaged over the microbatches before one
     update. ``terms`` are device tensors: the loss terms, and ``grad_norm``
     before clipping. The step does not synchronise with the device.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the batch is this rank's node rows;
+    the loss terms are global (``losses.total_loss``), and after the
+    backward the gradients are summed over the world (no DDP: its all-reduce
+    averages, and would run beside the halo exchange's own collectives in
+    the backward), so every rank applies the same update.
     """
     accum = max(cfg.train.grad_accum_steps, 1)
     tr = cfg.train
@@ -172,7 +190,8 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
             out = forward(images, graph)
         loss, terms = total_loss(out, {"depth": depth, "seg": seg},
                                  graph.node_mask, tr.depth_loss_weight,
-                                 tr.seg_loss_weight, depth_loss=tr.depth_loss)
+                                 tr.seg_loss_weight, depth_loss=tr.depth_loss,
+                                 mesh=mesh)
         grads = torch.autograd.grad(loss, params)
         return grads, {k: v.detach() for k, v in terms.items()}
 
@@ -190,6 +209,10 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
                 terms = {k: terms[k] + t[k] for k in terms}
             grads = [g / accum for g in grads]
             terms = {k: v / accum for k, v in terms.items()}
+        if mesh is not None:
+            flat = mesh.sum(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [f.view_as(g) for f, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
         terms["grad_norm"] = optimizer.step(grads)
         state.step += 1
         return state, terms
@@ -198,11 +221,42 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
+    from mrp_gnn_tpu_torch.parallel.mesh import _not_ported
     pc = cfg.parallel
-    if pc.data_axis_size * pc.graph_axis_size * pc.model_axis_size > 1:
-        raise NotImplementedError(
-            "mesh axes > 1 (data, graph and model parallelism) are not "
-            "ported yet (ROADMAP.md, queue A item 11)")
+    if pc.model_axis_size > 1:
+        raise _not_ported("a model axis > 1")
+    if pc.spatial_sharding:
+        raise _not_ported("spatial_sharding")
+
+
+def make_parallel(cfg: ExperimentConfig, device=None):
+    """This rank's ``ParallelContext`` for cfg, or None for a trivial mesh.
+
+    A mesh larger than the world (``torch.distributed``'s ranks; one without
+    a process group) shrinks, graph axis first, then data, until it fits,
+    with a printed line, as the JAX package shrinks it to its devices.
+    ``device``: this rank's device (default ``parallel.launch.rank_device``).
+    """
+    from mrp_gnn_tpu_torch.parallel.context import make_parallel_context
+    from mrp_gnn_tpu_torch.parallel.launch import world
+    _check_ported(cfg)
+    pc = cfg.parallel
+    d, g = pc.data_axis_size, pc.graph_axis_size
+    if d * g <= 1:
+        return None
+    size = world()[1]
+    if d * g > size:
+        while d * g > size:
+            if g > 1:
+                g = max(g // 2, 1)
+            else:
+                d = max(d // 2, 1)
+        print(f"[train] mesh {pc.data_axis_size}x{pc.graph_axis_size}"
+              f"x{pc.model_axis_size} needs more than {size} rank(s); "
+              f"clamped to {d}x{g}x{pc.model_axis_size}", flush=True)
+        cfg = cfg.replace(parallel=dataclasses.replace(
+            pc, data_axis_size=d, graph_axis_size=g))
+    return make_parallel_context(cfg, device)
 
 
 def _microbatches(it: Iterator[dict], accum: int) -> Iterator[dict]:
@@ -317,16 +371,23 @@ def batch_to_device(batch: dict, device) -> tuple:
 
 
 def _wrap_stream(base: Iterator[dict], accum: int, device,
-                 own: bool) -> Iterator[dict]:
+                 own: bool, pctx=None) -> Iterator[dict]:
     """The loop's batch stream over ``base``: each batch placed on the card
     by a producer thread (one microbatch a step), or each group stacked by
     one (accumulation; the loop copies the group). Its ``get_state()`` is
     aligned with what the loop has taken. A caller's ``base`` (``own``
-    False) is never closed."""
+    False) is never closed. ``pctx``: each batch first becomes this rank's
+    (``ParallelContext.local_batch``: its rows, its block of the plan), on
+    the producer thread."""
     from mrp_gnn_tpu_torch.data.pipeline import TransformIterator
     if accum > 1:
+        if pctx is not None:
+            base = TransformIterator(base, pctx.local_batch, close_inner=own)
+            own = True
         return _MicrobatchStacker(base, accum, close_inner=own)
-    return TransformIterator(base, BatchPlacer(device), close_inner=own)
+    place = BatchPlacer(device)
+    fn = place if pctx is None else (lambda b: place(pctx.local_batch(b)))
+    return TransformIterator(base, fn, close_inner=own)
 
 
 def _counts(graph, accum: int) -> tuple:
@@ -365,41 +426,57 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
     gives ``best_eval_rmse`` and ``best_eval_step``. With
     ``tensorboard_dir``, every record's scalars go to a TensorBoard event
     file there.
+
+    Under a mesh (:func:`make_parallel`; every rank calls ``train``), the
+    device is this rank's (``device`` None: ``parallel.launch.rank_device``),
+    the builtin stream renders this rank's node rows, and the records are
+    the same on every rank; only rank 0 calls ``log_fn``, writes TensorBoard
+    and saves checkpoints. A caller's ``data_iter`` yields whole batches,
+    of which each rank takes its rows.
     """
-    _check_ported(cfg)
-    device = resolve_device(device)
+    pctx = make_parallel(cfg, device)
+    device = pctx.device if pctx is not None else resolve_device(device)
+    lead = pctx is None or pctx.mesh.rank == 0
     tr = cfg.train
     steps = num_steps if num_steps is not None else tr.steps
     accum = max(tr.grad_accum_steps, 1)
-    state = create_train_state(cfg, device)
+    state = create_train_state(
+        cfg, device, edge_fusion_fn=pctx.edge_fusion_fn if pctx else None)
     ckpt_mgr = None
     if tr.checkpoint_dir:
         from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
         ckpt_mgr = CheckpointManager(tr.checkpoint_dir)
-        _write_config(cfg)
+        if lead:
+            _write_config(cfg)
         ckpt_mgr.restore_latest(state)
+    if pctx is not None:
+        pctx.shard_state(state)
     start_step = state.step
     own = data_iter is None
     if own:
         from mrp_gnn_tpu_torch.data.pipeline import make_train_iterator
+        d = cfg.data
         base = make_train_iterator(
-            cfg.data, start_batch=start_step * accum,
-            data_state=ckpt_mgr.latest_data_state() if ckpt_mgr else None)
+            d, start_batch=start_step * accum,
+            data_state=ckpt_mgr.latest_data_state() if ckpt_mgr else None,
+            node_range=pctx.local_node_range(
+                d.max_nodes or d.scenes_per_batch * d.num_robots)
+            if pctx else None)
     else:
         base = data_iter
-    it = _wrap_stream(base, accum, device, own)
+    it = _wrap_stream(base, accum, device, own, pctx)
     records = []
     # best tracking lives in the state, so it survives checkpoint/resume
     best_rmse, best_step = state.best_rmse, state.best_step
     tb = None
     try:
-        if tr.tensorboard_dir:
+        if tr.tensorboard_dir and lead:
             from torch.utils.tensorboard import SummaryWriter
             tb = SummaryWriter(tr.tensorboard_dir)
 
         def emit(rec: dict) -> None:
             records.append(rec)
-            if log_fn:
+            if log_fn and lead:
                 log_fn(rec)
 
         def summarize(step: int, scalars: dict) -> None:
@@ -407,7 +484,8 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 for k, v in scalars.items():
                     tb.add_scalar(k, v, step)
 
-        step_fn = make_train_step(cfg, state.model, state.optimizer)
+        step_fn = make_train_step(cfg, state.model, state.optimizer,
+                                  mesh=pctx.mesh if pctx else None)
         if start_step < steps:
             batch = next(it)
             n_nodes, n_edges = _counts(batch["graph"], accum)
@@ -432,7 +510,7 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 summarize(i + 1, {k: v for k, v in rec.items() if k != "step"})
             if tr.eval_every and (i + 1) % tr.eval_every == 0:
                 from mrp_gnn_tpu_torch.evaluate import evaluate
-                ev = evaluate(cfg, state.model)
+                ev = evaluate(cfg, state.model, pctx=pctx)
                 ev_rec = {"step": i + 1,
                           **{f"eval_{k}": v for k, v in ev.items()}}
                 emit(ev_rec)
@@ -441,8 +519,8 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 if "rmse" in ev and ev["rmse"] < best_rmse:
                     best_rmse, best_step = ev["rmse"], i + 1
                     state.best_rmse, state.best_step = best_rmse, best_step
-            if ckpt_mgr and ((i + 1) % tr.checkpoint_every == 0
-                             or i == steps - 1):
+            if ckpt_mgr and lead and ((i + 1) % tr.checkpoint_every == 0
+                                      or i == steps - 1):
                 ckpt_mgr.save(i + 1, state, data_state=it.get_state())
             if i + 1 < steps:
                 batch = next(it)
@@ -456,6 +534,49 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
     if ckpt_mgr:
         ckpt_mgr.close()
     return state, records
+
+
+def add_multihost_args(p: argparse.ArgumentParser) -> None:
+    """The multi-process flags of the train and eval CLIs, under the JAX
+    package's names, and ``--dist_backend``. There is no
+    ``--local_device_count``: one rank is one process."""
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0; enables torch.distributed")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
+                   help="nccl: one card per rank; gloo: through host "
+                        "memory, ranks may share a card")
+
+
+def init_multihost(args) -> None:
+    """``parallel.launch.initialize`` from parsed CLI flags (nothing without
+    --coordinator)."""
+    from mrp_gnn_tpu_torch.parallel.launch import initialize
+    initialize(coordinator=args.coordinator,
+               num_processes=args.num_processes,
+               process_id=args.process_id, backend=args.dist_backend)
+
+
+def add_axis_args(p: argparse.ArgumentParser) -> None:
+    """Overrides of ParallelConfig's data and graph axes, as the JAX CLI
+    has them (its --model_axis has no ported counterpart)."""
+    p.add_argument("--data_axis", type=int, default=None,
+                   help="override ParallelConfig.data_axis_size")
+    p.add_argument("--graph_axis", type=int, default=None,
+                   help="override ParallelConfig.graph_axis_size")
+    p.add_argument("--expanded_plan_pairs", type=int, default=None,
+                   help="override ParallelConfig.expanded_plan_pairs (the "
+                        "per-shard row-expanded plan opt-in for dynamic "
+                        "partitioned streams past width 128)")
+
+
+def apply_axis_args(cfg: ExperimentConfig, args) -> ExperimentConfig:
+    kw = {f: v for f, v in (("data_axis_size", args.data_axis),
+                            ("graph_axis_size", args.graph_axis),
+                            ("expanded_plan_pairs", args.expanded_plan_pairs))
+          if v is not None}
+    return cfg.replace(parallel=dataclasses.replace(cfg.parallel, **kw))
 
 
 def main(argv=None):
@@ -484,10 +605,14 @@ def main(argv=None):
                    help="autograd anomaly detection on, and host-side "
                         "validation of the first batch's graph")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card; under a mesh "
+                        "the card of the rank's local rank)")
+    add_axis_args(p)
+    add_multihost_args(p)
     args = p.parse_args(argv)
+    init_multihost(args)
 
-    cfg = get_config(args.config)
+    cfg = apply_axis_args(get_config(args.config), args)
     tr = cfg.train
     if args.lr is not None:
         tr = dataclasses.replace(tr, learning_rate=args.lr)
@@ -519,7 +644,11 @@ def main(argv=None):
     if args.dtype is not None:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dtype=args.dtype))
-    device = resolve_device(args.device)
+    if args.coordinator is None:
+        device = resolve_device(args.device)
+    else:
+        from mrp_gnn_tpu_torch.parallel.launch import rank_device
+        device = rank_device(args.device)
     if args.debug:
         from mrp_gnn_tpu_torch.data.pipeline import make_dataset
         from mrp_gnn_tpu_torch.utils.debug import enable_debug, validate_graph
@@ -557,6 +686,8 @@ def main(argv=None):
     losses = [r["total"] for r in records if "total" in r]
     if losses:
         print(f"[train] final loss {losses[-1]:.4f}")
+    if args.coordinator is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

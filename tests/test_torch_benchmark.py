@@ -98,5 +98,5 @@ def test_encoder_flops_equal_an_analytic_count():
 
 @pytest.mark.parametrize("what", ["scaling", "overlap"])
 def test_multi_device_benches_wait_for_parallelism(what):
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
         TB.main(["--what", what, "--device", "cpu"])

@@ -57,7 +57,9 @@ def test_scan_covers_the_package():
                 "grain_pipeline"):
         assert f"mrp_gnn_tpu_torch/data/{mod}.py" in names
     assert "mrp_gnn_tpu_torch/ops/library.py" in names
-    assert len(names) >= 24
+    for mod in ("__init__", "partition", "launch", "mesh", "fused", "context"):
+        assert f"mrp_gnn_tpu_torch/parallel/{mod}.py" in names
+    assert len(names) >= 30
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

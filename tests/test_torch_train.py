@@ -221,12 +221,14 @@ def test_train_loop_halts_on_a_nonfinite_loss():
 
 
 @pytest.mark.parametrize("change", [
-    dict(parallel=dict(data_axis_size=2)), dict(data=dict(loader="grain"))],
-    ids=["mesh", "grain"])
+    dict(parallel=dict(model_axis_size=2)), dict(data=dict(loader="grain")),
+    dict(parallel=dict(spatial_sharding=True))],
+    ids=["mesh", "grain", "spatial"])
 def test_train_refuses_what_is_not_ported(change, monkeypatch):
-    """Mesh axes > 1 are not ported (A11); the worker loader is, and
-    refuses a process group of more than one process, as the JAX package
-    refuses more than one process."""
+    """The data and graph axes are ported; a model axis > 1 and spatial
+    sharding are not (A11's second half), refused before the mesh would be
+    shrunk to the world. The worker loader refuses a process group of more
+    than one process, as the JAX package refuses more than one process."""
     cfg = get_config("dynamic_swarm")
     for part, kw in change.items():
         cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part),
