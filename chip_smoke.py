@@ -1,10 +1,11 @@
-"""Drive the PyTorch port's serving, export, training, data and data x
-graph parallel paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, export, training, data and parallel
+(data x graph, and the model axis) paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --parallel-rank R WORLD STORE OUT`` is one rank
-of phase 10, which the script starts itself.)
+of phase 10, ``--model-axis-rank MODE R WORLD STORE OUT`` one of phase 11;
+the script starts them itself.)
 
 Seven paths through the fusion layer, each at the full width of a preset
 (64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, random
@@ -170,7 +171,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (host time of the gloo operations, device time of the copies); the
    rows exchanged per shard; rank 0's device idle share. Eight ranks
    sharing one card through host memory are not how a multi-card
-   deployment runs: these numbers are findings, not claims.
+   deployment runs: these numbers are findings, not claims;
+11. model axis (``phase_model_axis``), on ``dynamic_swarm`` at full width
+   (16 eval scenes): ranks of this script (``--model-axis-rank``) sharing
+   the card through gloo, on a 1 x 1 x 2 mesh with channel tensor
+   parallelism (2 ranks; each rank's single-device attention on its 64
+   channels of the values, D 4096) and on a 2 x 1 x 4 mesh with image-row
+   sharding (8 ranks; each data replica's one-shard partitioned fusion on
+   a rank's 2 bottleneck rows, D 2048). Held for each: every kernel call
+   on every rank's shards within 1e-5 of its plain version, at that width
+   and in its form (the fused forward's and the SpMM's vector forms);
+   ``train.train`` for 4 steps with launch counts reset just before it and
+   read just after (rows 1, 3, 4/7 and 6 once a step under tensor
+   parallelism, 3, 4 and 5 under spatial sharding, on every rank, no
+   other kernel); the replicated parameters bit for bit equal across
+   ranks; the resume from step 2 bit for bit; two updates from the seeded
+   state (lr 0, then above 0) against one process's (the first step's
+   terms within 1e-5 relative; each leaf of its gradients and of the
+   parameters after the second update, gathered whole, within 1e-5 beyond
+   the most that one process's own values move when each pixel is scaled
+   by 1 +- 1e-7, over 8 draws); ``train.train``'s first step within 1e-5
+   relative of one process's run and its steps 2-4 within rtol 2e-4, atol
+   2e-5; ``evaluate`` within 1e-4 of one process evaluating the ranks'
+   final parameters. Printed: the later steps, the step over the ranks
+   (CUDA events and host clock) beside one process's, the host time in
+   the channel gathers, halo rows, group sums and batch sums, and over the
+   8 ranks the ``benchmark.bench_scaling`` and ``bench_overlap`` records.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -182,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -2804,21 +2831,24 @@ def _sync(dev) -> None:
 
 
 class _HostTimers:
-    """Host seconds spent in the halo exchange (posting: the send gather,
-    the pinned copy and its wait, and the batched isend/irecv; waiting for
-    the receive and its copy back; the backward's reverse exchange) and in
-    the world sums (loss terms, gradients), by wrapping them for a
-    measurement."""
+    """Host seconds spent in the methods ``kinds`` names (kind: [(class,
+    method name)], plain or static methods), by kind, by wrapping them for
+    a measurement. Phase 10 times the halo exchange (posting: the send
+    gather, the pinned copy and its wait, and the batched isend/irecv;
+    waiting for the receive and its copy back; the backward's reverse
+    exchange) and the world sums (loss terms, gradients):
+    :func:`parallel_timers`."""
 
-    def __init__(self):
-        from mrp_gnn_tpu_torch.parallel import fused, mesh
-        self.seconds = {"exchange": 0.0, "world_sums": 0.0}
-        self._saved = [(fused._Halo, "_swap"), (fused._Pending, "wait"),
-                       (mesh.Mesh, "sum"), (mesh.Mesh, "all_gather")]
-        self._orig = [getattr(c, n) for c, n in self._saved]
-        for (cls, name), orig in zip(self._saved, self._orig):
-            key = "world_sums" if cls is mesh.Mesh else "exchange"
-            setattr(cls, name, self._timed(orig, key))
+    def __init__(self, kinds: dict):
+        self.seconds = {k: 0.0 for k in kinds}
+        self._saved = []
+        for kind, sites in kinds.items():
+            for cls, name in sites:
+                orig = cls.__dict__[name]
+                static = isinstance(orig, staticmethod)
+                timed = self._timed(orig.__func__ if static else orig, kind)
+                setattr(cls, name, staticmethod(timed) if static else timed)
+                self._saved.append((cls, name, orig))
 
     def _timed(self, fn, key):
         def wrapped(*args, **kw):
@@ -2830,32 +2860,75 @@ class _HostTimers:
         return wrapped
 
     def close(self):
-        for (cls, name), orig in zip(self._saved, self._orig):
+        for cls, name, orig in self._saved:
             setattr(cls, name, orig)
 
 
-class _ShardCalls:
-    """While open, each call of ``bsp.spmm``, ``bsp.sddmm`` and
-    ``bsp.spmm_t`` (rows 3, 4 and 5) is held against its plain version on
-    the same shard tensors, as the call returns; ``errors`` keeps, by
-    wrapper, the calls and the largest max |got - want| over
-    max(1, max |want|)."""
+def parallel_timers() -> _HostTimers:
+    from mrp_gnn_tpu_torch.parallel import fused, mesh
+    return _HostTimers({
+        "exchange": [(fused._Halo, "_swap"), (fused._Pending, "wait")],
+        "world_sums": [(mesh.Mesh, "sum"), (mesh.Mesh, "all_gather")]})
 
-    def __init__(self):
+
+def _plain_sddmm(a1, b1, ell_src, ell_mask, a2=None, b2=None):
+    out = bsp.sddmm_reference(a1, b1, ell_src, ell_mask)
+    return out if a2 is None else (out, bsp.sddmm_reference(a2, b2, ell_src,
+                                                            ell_mask))
+
+
+class _ShardCalls:
+    """While open, each call of the wrappers of ``plain`` (name on ``bsp``:
+    its plain version; PARALLEL_WRAPPERS by default, rows 3, 4 and 5) is
+    held against its plain version on the same shard tensors, as the call
+    returns; ``errors`` keeps, by wrapper, the calls, the largest max |got -
+    want| over max(1, max |want|) and the feature widths (the widest 2-D
+    float operand's dim 1) it ran at; ``forms`` the SpMM's and the fused
+    forward's form at each width (``bsp.spmm_form``, ``bsp.fused_form``)."""
+
+    def __init__(self, plain: dict | None = None):
+        self.plain = plain or PARALLEL_WRAPPERS
         self.errors = {}
-        self._orig = {n: getattr(bsp, n) for n in PARALLEL_WRAPPERS}
+        self.forms = {}
+        self._orig = {n: getattr(bsp, n) for n in self.plain}
         for name, fn in self._orig.items():
             setattr(bsp, name, self._held(name, fn))
+
+    def _form(self, name, args) -> None:
+        if name == "spmm":
+            x = args[1]
+            vec = 8 if bsp._vec8(x) else 1
+            form = bsp.SPMM_FORMS[bsp.spmm_form(vec, x.shape[1],
+                                                x.dtype == torch.bfloat16)]
+        elif name == "fused_attention":
+            v = args[2]
+            form = bsp.FUSED_FORMS[bsp.fused_form(
+                8 if bsp._vec8(v) else 1, v.dtype == torch.bfloat16)]
+        else:
+            return
+        self.forms.setdefault(name, {})[str(args[1 if name == "spmm"
+                                                 else 2].shape[1])] = form
 
     def _held(self, name, fn):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
-            want = PARALLEL_WRAPPERS[name](*args, **{
+            want = self.plain[name](*args, **{
                 k: v for k, v in kw.items() if k != "view"})
-            err = float((out.float() - want.float()).abs().max()
-                        / max(1.0, float(want.abs().max())))
-            n, worst = self.errors.get(name, (0, 0.0))
-            self.errors[name] = (n + 1, max(worst, err))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            wants = want if isinstance(want, (tuple, list)) else (want,)
+            err = max(float((o.float() - w.float()).abs().max()
+                            / max(1.0, float(w.abs().max())))
+                      for o, w in zip(outs, wants))
+            width = max(t.shape[1] for t in args if torch.is_tensor(t)
+                        and t.dim() == 2 and t.is_floating_point())
+            rec = self.errors.setdefault(name, {"calls": 0, "max_err": 0.0,
+                                                "widths": []})
+            rec["calls"] += 1
+            rec["max_err"] = max(rec["max_err"], err)
+            if width not in rec["widths"]:
+                rec["widths"].append(width)
+            if out is not None and outs[0].is_cuda:
+                self._form(name, args)
             return out
         wrapped.launches = 0    # the wrapper counts itself (not a launch
         return wrapped          # of the main path: not read)
@@ -2933,7 +3006,7 @@ def _rank_timings(dev, out: dict, profile: bool) -> None:
         state = train.create_train_state(cfg, dev, pctx.edge_fusion_fn)
         pctx.shard_state(state)
         step = train.make_train_step(cfg, state.model, state.optimizer,
-                                     mesh=pctx.mesh)
+                                     pctx)
         d = cfg.data
         batch = next(iter(make_dataset(
             d, "train", node_range=pctx.local_node_range(
@@ -2942,7 +3015,7 @@ def _rank_timings(dev, out: dict, profile: bool) -> None:
         for _ in range(2):
             step(state, *args)
         _sync(dev)
-        timers = _HostTimers()
+        timers = parallel_timers()
         try:
             times = [_timed_step(lambda: step(state, *args)[1], dev)
                      for _ in range(PARALLEL_TIMING_STEPS)]
@@ -3100,17 +3173,20 @@ def _tail(path: str) -> str:
         return "(no log)"
 
 
-def spawn_parallel_ranks(out_dir: str, device: str | None = None) -> None:
-    """PARALLEL_RANKS processes of this script in rank mode, all started
-    together; waits with a timeout, stops at the first rank that fails,
-    kills the rest, and raises with the failing ranks' logs."""
+def spawn_parallel_ranks(out_dir: str, device: str | None = None,
+                         world: int = PARALLEL_RANKS,
+                         mode: tuple = ("--parallel-rank",)) -> None:
+    """``world`` processes of this script in rank mode (``mode``: its flag
+    and the arguments before the rank's), all started together; waits with
+    a timeout, stops at the first rank that fails, kills the rest, and
+    raises with the failing ranks' logs."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     store = os.path.join(out_dir, "store")
-    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(PARALLEL_RANKS)]
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
     procs = []
-    for r in range(PARALLEL_RANKS):
-        cmd = [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-               str(r), str(PARALLEL_RANKS), store, out_dir]
+    for r in range(world):
+        cmd = [sys.executable, os.path.abspath(__file__), *mode,
+               str(r), str(world), store, out_dir]
         if device is not None:
             cmd.append(device)
         with open(logs[r], "w") as log:
@@ -3142,14 +3218,16 @@ def _close(got: np.ndarray, want: np.ndarray) -> float:
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
 
 
-def _check_shard_kernels(shards: list) -> dict:
-    """Every rank's calls of rows 3-5 in the fusion cases: each wrapper
-    called on every rank, every call within TOL_PARALLEL of its plain
-    version; returns the largest error by wrapper."""
+def _check_shard_kernels(shards: list, plain: dict = None) -> dict:
+    """Every rank's calls of the wrappers of ``plain`` (PARALLEL_WRAPPERS
+    by default): each wrapper called on every rank, every call within
+    TOL_PARALLEL of its plain version; returns the largest error by
+    wrapper."""
     worst = {}
     for r, errors in enumerate(shards):
-        for name in PARALLEL_WRAPPERS:
-            n, err = errors.get(name, (0, 0.0))
+        for name in plain or PARALLEL_WRAPPERS:
+            rec = errors.get(name, {"calls": 0, "max_err": 0.0})
+            n, err = rec["calls"], rec["max_err"]
             if n == 0 or not err <= TOL_PARALLEL:
                 raise AssertionError(f"rank {r}'s bsp.{name} on its shard: "
                                      f"{n} call(s), max err {err}")
@@ -3306,6 +3384,493 @@ def phase_parallel(dev, tag: dict, rank_device: str | None = None) -> dict:
     return got
 
 
+# --- phase 11: the model axis (tensor parallel, spatial) over ranks ----------
+
+# mode: (data, graph, model) axes; "spatial" shards image rows
+MODEL_AXIS_MESHES = {"tp": (1, 1, 2), "spatial": (2, 1, 4)}
+MODEL_AXIS_STEPS = 4          # the straight run; the resume repeats steps 3-4
+MODEL_AXIS_TIMING_STEPS = 4   # steps timed over the ranks
+MODEL_AXIS_EVAL_SCENES = 16   # 2 eval batches (the preset's 64: 8)
+MODEL_AXIS_BENCH_INNER = 10   # chained calls per timing of the benches
+# One process's own sensitivity to rounding: the held updates again with
+# each pixel scaled by 1 +- 1e-7 (seeded signs), MODEL_AXIS_DRAWS times. A
+# leaf of the ranks' gradients or parameters is held within TOL_PARALLEL
+# beyond the most that two of these runs disagree on it
+# (``_leaf_envelope``).
+MODEL_AXIS_DRAWS = 16
+# train()'s steps 2-4 against one process: the JAX tests' tolerance
+TOL_MODEL_AXIS_STEPS = dict(rtol=2e-4, atol=2e-5)
+# The kernels each path runs on its shards, by wrapper, with their plain
+# versions: tensor parallel, the single-device attention of each rank's
+# channel slice (rows 1, 3, 4/7 and 6; D 4096 a rank); spatial, the data
+# axis's one-shard partitioned fusion of each rank's rows (rows 3, 4 and
+# 5; D 2048 a rank).
+MODEL_AXIS_WRAPPERS = {
+    "tp": {"fused_attention": bsp.fused_attention_reference,
+           "sddmm": _plain_sddmm, "spmm": bsp.spmm_reference,
+           "spmm_t2": bsp.spmm_t2_reference},
+    "spatial": PARALLEL_WRAPPERS}
+MODEL_AXIS_PER_STEP = {
+    "tp": {"bsp_fused_attention": 1, "bsp_sddmm": 1, "bsp_spmm": 1,
+           "bsp_spmm_t2": 1},
+    "spatial": {"bsp_spmm": 1, "bsp_sddmm": 1, "bsp_spmm_t": 1}}
+MODEL_AXIS_WIDTH = {"tp": 4096, "spatial": 2048}
+# the form each path's widest kernel must take there (``bsp.spmm_form``:
+# the SpMM's vector form from D 2048)
+MODEL_AXIS_FORMS = {"tp": {"fused_attention": {"4096": "vec"}},
+                    "spatial": {"spmm": {"2048": "vec"}}}
+
+
+def model_axis_config(mode: str | None = None, checkpoint_dir: str = ""):
+    """``dynamic_swarm`` at full width (``swarm_config``: 64x64, encoder
+    32/64/128, one attention fusion layer, 6 classes, f32; 8 scenes x 32
+    drifting robots), MODEL_AXIS_EVAL_SCENES eval scenes, checkpoints every
+    2 steps, on ``mode``'s mesh (one process: None)."""
+    cfg = swarm_config()
+    d, g, m = MODEL_AXIS_MESHES[mode] if mode else (1, 1, 1)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data,
+                                 num_eval_scenes=MODEL_AXIS_EVAL_SCENES),
+        train=dataclasses.replace(cfg.train, log_every=1, checkpoint_every=2,
+                                  checkpoint_dir=checkpoint_dir),
+        parallel=dataclasses.replace(cfg.parallel, data_axis_size=d,
+                                     graph_axis_size=g, model_axis_size=m,
+                                     spatial_sharding=mode == "spatial"))
+
+
+def _first_batch(cfg, dev, pctx=None) -> tuple:
+    """The train stream's first batch on ``dev``: this rank's under
+    ``pctx``."""
+    d = cfg.data
+    it = make_train_iterator(d, node_range=pctx.local_node_range(
+        d.scenes_per_batch * d.num_robots) if pctx else None)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    return (pctx.shard_batch(batch) if pctx
+            else train.batch_to_device(batch, dev))
+
+
+def _first_update(cfg, dev, pctx=None, plain: dict | None = None,
+                  draw: int | None = None) -> dict:
+    """Two updates from the seeded state on the first batch, the first at
+    lr 0 (the warmup schedule's start), the second above it (``pctx``: over
+    the ranks, every call of the wrappers of ``plain`` held against its
+    plain version; ``draw``: each pixel scaled by 1 +- 1e-7, signs seeded
+    by it): the first step's terms, global norm and gradients, and the
+    parameters after the second update, whole (gathered under tensor
+    parallelism), on the CPU."""
+    from mrp_gnn_tpu_torch.parallel import tp
+    state = train.create_train_state(cfg, dev,
+                                     pctx.edge_fusion_fn if pctx else None)
+    if pctx:
+        pctx.shard_state(state)
+    if not (train.warmup_cosine_lr(cfg, 0) == 0
+            < train.warmup_cosine_lr(cfg, 1)):
+        raise AssertionError("the second held update must have lr above 0")
+    params = list(state.model.parameters())
+    args = _first_batch(cfg, dev, pctx)
+    if draw is not None:
+        images = args[0]
+        signs = np.random.default_rng(draw).choice(
+            [-1.0, 1.0], size=tuple(images.shape)).astype(np.float32)
+        args = (images * (1 + 1e-7 * torch.from_numpy(signs).to(dev)),
+                *args[1:])
+    grad_fn = train.make_grad_fn(cfg, state.model, pctx)
+    mesh = pctx.mesh if pctx else None
+    held = _ShardCalls(plain) if plain else None
+    try:
+        grads, terms = grad_fn(*args)
+        norm = train.global_norm(grads, params, mesh)
+        state.optimizer.step(grads, norm)
+        again, _ = grad_fn(*args)
+        state.optimizer.step(again, train.global_norm(again, params, mesh))
+    finally:
+        if held:
+            held.close()
+    grads = list(grads)
+    sharded = [i for i, p in enumerate(params) if tp.is_sharded(p)]
+    if sharded:
+        for i, g in zip(sharded, pctx.shard.gather_rows(
+                [grads[i] for i in sharded])):
+            grads[i] = g
+    whole = pctx.full_tensors(state) if pctx else None
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grad_norm": float(norm),
+            "grads": {n: g.cpu() for n, g in zip(names, grads)},
+            "params": {n: p.cpu() for n, p in (whole[0] if whole else
+                                               state.model.state_dict())
+                       .items()},
+            "held": (held.errors, held.forms) if held else None}
+
+
+def model_axis_timers() -> _HostTimers:
+    """:class:`_HostTimers` of the model axis's collectives, by kind: the
+    channel gathers of tensor parallelism (``tp._Gather`` and the backward
+    of ``tp.enter``), the halo rows of spatial sharding
+    (``spatial._HaloRows``), its group sums (GroupNorm's statistics and the
+    pooled mean: ``spatial._ModelGather``, ``spatial._ModelSum``), and the
+    batch sums (loss terms and gradients: ``Mesh.sum``)."""
+    from mrp_gnn_tpu_torch.parallel import mesh, spatial, tp
+    return _HostTimers({
+        "channel_gathers": [(tp._Gather, "forward"), (tp._Gather, "backward"),
+                            (tp._Enter, "backward")],
+        "halo_rows": [(spatial._HaloRows, "forward"),
+                      (spatial._HaloRows, "backward")],
+        "group_sums": [(spatial._ModelGather, "forward"),
+                       (spatial._ModelGather, "backward"),
+                       (spatial._ModelSum, "forward"),
+                       (spatial._ModelSum, "backward")],
+        "batch_sums": [(mesh.Mesh, "sum")]})
+
+
+def _model_axis_timings(cfg, pctx, dev) -> dict:
+    """The step over the ranks (median of MODEL_AXIS_TIMING_STEPS by CUDA
+    events on this rank's stream and by host clock, every rank in step,
+    after 2 warm steps) and the host time per collective kind over those
+    steps."""
+    state = train.create_train_state(cfg, dev, pctx.edge_fusion_fn)
+    pctx.shard_state(state)
+    step = train.make_train_step(cfg, state.model, state.optimizer, pctx)
+    args = _first_batch(cfg, dev, pctx)
+    for _ in range(2):
+        step(state, *args)
+    _sync(dev)
+    timers = model_axis_timers()
+    try:
+        times = [_timed_step(lambda: step(state, *args)[1], dev)
+                 for _ in range(MODEL_AXIS_TIMING_STEPS)]
+    finally:
+        timers.close()
+    n = len(times)
+    return {"step_ms_cuda_events": statistics.median(t[0] for t in times),
+            "step_ms_host": statistics.median(t[1] for t in times),
+            "collective_host_ms_per_step": {
+                k: v * 1e3 / n for k, v in timers.seconds.items()},
+            "host_ms_per_step": sum(t[1] for t in times) / n}
+
+
+def model_axis_rank_main(argv) -> int:
+    """One rank of phase 11: ``chip_smoke.py --model-axis-rank MODE R WORLD
+    STORE OUT [DEVICE]``. Joins the gloo group, then on ``MODE``'s mesh
+    (``MODEL_AXIS_MESHES``) runs the held updates (every kernel call
+    against its plain version), the straight ``train.train`` (launch counts
+    reset just before it and read just after), the resume from its step-2
+    checkpoint, ``evaluate`` with the context and the timings; under
+    "spatial" also ``benchmark.bench_scaling`` and ``bench_overlap`` over
+    the world. Rank 0 writes ``OUT/rank0.json``, ``OUT/step1.pt`` and
+    ``OUT/final.pt`` (whole tensors)."""
+    from mrp_gnn_tpu_torch.parallel import launch
+    from mrp_gnn_tpu_torch.parallel.tp import is_sharded
+    mode = argv[0]
+    rank, world, store, out_dir = (int(argv[1]), int(argv[2]), argv[3],
+                                   argv[4])
+    torch.set_num_threads(1)
+    launch.initialize(f"file://{store}", world, rank, backend="gloo")
+    dev = launch.rank_device(argv[5] if len(argv) > 5 else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"world": torch.distributed.get_world_size(), "device": str(dev)}
+    t0 = time.perf_counter()
+
+    def mark(name):
+        torch.distributed.barrier()
+        out.setdefault("seconds", {})[name] = time.perf_counter() - t0
+
+    def gathered(obj):
+        every = [None] * world
+        torch.distributed.all_gather_object(every, obj)
+        return every
+
+    ck = os.path.join(out_dir, "ck")
+    cfg = model_axis_config(mode, ck)
+    pctx = train.make_parallel(cfg, dev)
+    m = pctx.mesh
+    out["mesh"] = [m.data, m.graph, m.model]
+    out["spatial"] = pctx.spatial
+    first = _first_update(cfg, dev, pctx, MODEL_AXIS_WRAPPERS[mode])
+    out["held"] = gathered(first.pop("held"))
+    out["first"] = {"terms": first["terms"], "grad_norm": first["grad_norm"]}
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "step1.pt"))
+    mark("held updates")
+    # the main path of the phase: counts reset just before, read just after
+    bsp.reset_launches()
+    state, records = train.train(cfg, num_steps=MODEL_AXIS_STEPS, device=dev)
+    out["launches"] = gathered(bsp.launch_counts())
+    out["straight"] = _train_terms(records, range(1, MODEL_AXIS_STEPS + 1))
+    out["replicated_digests"] = gathered(param_digest_of(
+        {n: p for n, p in state.model.named_parameters()
+         if not is_sharded(p)}))
+    out["local_shapes"] = {n: list(p.shape)
+                           for n, p in state.model.named_parameters()}
+    whole = pctx.full_tensors(state)
+    if rank == 0:
+        torch.save(whole[0] if whole else state.model.state_dict(),
+                   os.path.join(out_dir, "final.pt"))
+        os.makedirs(os.path.join(out_dir, "resume"))
+        shutil.copy(os.path.join(ck, "ckpt_2.pt"),
+                    os.path.join(out_dir, "resume"))
+    mark("train")
+    _, records = train.train(cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=os.path.join(out_dir, "resume"))),
+        num_steps=MODEL_AXIS_STEPS, device=dev)
+    out["resumed"] = _train_terms(records, range(1, MODEL_AXIS_STEPS + 1))
+    mark("resume")
+    out["eval"] = evaluate(cfg, state.model, pctx=pctx)
+    mark("eval")
+    out["timings"] = gathered(_model_axis_timings(cfg, pctx, dev))
+    mark("timings")
+    if mode == "spatial":
+        out["scaling"] = benchmark.bench_scaling(
+            inner=MODEL_AXIS_BENCH_INNER, device=dev)
+        out["overlap"] = benchmark.bench_overlap(
+            inner=MODEL_AXIS_BENCH_INNER, device=dev)
+        mark("benches")
+    if rank == 0:
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def param_digest_of(params: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for _, p in sorted(params.items()):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _leaf_scales(want: dict) -> dict:
+    """Each leaf's largest element, or 1% of the whole's largest for a leaf
+    that is rounding noise."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {n: max(float(w.abs().max()), 1e-2 * top)
+            for n, w in want.items()}
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's error relative to :func:`_leaf_scales`."""
+    return {n: float((got[n].float() - want[n].float()).abs().max()) / s
+            for n, s in _leaf_scales(want).items()}
+
+
+def _leaf_envelope(first_one: dict, draws: list) -> dict:
+    """By "grads" and "params", each leaf's bound: TOL_PARALLEL beyond the
+    most that any two of one process's runs (``first_one`` and the draws,
+    ``_first_update(draw=)``) disagree on it. The ranks against one process
+    are one more such pair, each rounding otherwise. Where a ReLU gate's
+    input lies within rounding of 0, the gradient of the weights before it
+    jumps when the gate flips, and AdamW's second update from two equal
+    gradients, g / (|g| + 1e-8) times the lr, moves an element whose
+    gradient is near 1e-8 by a share of the lr."""
+    runs = [first_one] + draws
+    out = {}
+    for key in ("grads", "params"):
+        out[key] = {n: TOL_PARALLEL + max(
+            float((a[key][n] - b[key][n]).abs().max())
+            for a, b in itertools.combinations(runs, 2)) / s
+            for n, s in _leaf_scales(first_one[key]).items()}
+    return out
+
+
+def _check_model_axis(mode: str, got: dict, single: list, first_one: dict,
+                      envelope: dict, final: dict, dev) -> dict:
+    """Phase 11's holds for ``mode`` (see :func:`phase_model_axis`)."""
+    d, g, m = MODEL_AXIS_MESHES[mode]
+    world = d * g * m
+    if (got["world"], got["mesh"], got["spatial"]) != (
+            world, [d, g, m], mode == "spatial"):
+        raise AssertionError(f"{mode}: ran with world {got['world']}, mesh "
+                             f"{got['mesh']}, spatial {got['spatial']}")
+    plain = MODEL_AXIS_WRAPPERS[mode]
+    shard = _check_shard_kernels([e for e, _ in got["held"]], plain)
+    for r, (errors, forms) in enumerate(got["held"]):
+        widths = sorted({w for e in errors.values() for w in e["widths"]})
+        if MODEL_AXIS_WIDTH[mode] not in widths:
+            raise AssertionError(f"{mode} rank {r}: kernel widths {widths}")
+        for name, by_width in MODEL_AXIS_FORMS[mode].items():
+            for width, form in by_width.items():
+                if forms.get(name, {}).get(width) != form:
+                    raise AssertionError(f"{mode} rank {r}: {name} at D "
+                                         f"{width} took {forms.get(name)}")
+    log(f"[model axis] {mode}: each kernel call on every rank's shards vs "
+        f"its plain version: max err {json.dumps(shard)}; widths and forms "
+        f"on rank 0: {json.dumps(got['held'][0][1])}")
+    per = MODEL_AXIS_PER_STEP[mode]
+    want = {k: per.get(k, 0) * MODEL_AXIS_STEPS for k in bsp.KERNELS}
+    for r, counts in enumerate(got["launches"]):
+        if counts != want:
+            raise AssertionError(f"{mode} rank {r}'s launches over "
+                                 f"{MODEL_AXIS_STEPS} steps: {counts}, "
+                                 f"expected {want}")
+    log(f"[model axis] {mode}: launches per rank per step, on each of the "
+        f"{world} ranks: {json.dumps(per)}")
+    if len(set(got["replicated_digests"])) != 1:
+        raise AssertionError(f"{mode}: replicated parameters differ across "
+                             f"ranks")
+    if got["resumed"] != got["straight"][2:]:
+        raise AssertionError(f"{mode}: resume {got['resumed']} is not the "
+                             f"straight run {got['straight'][2:]}")
+    # the held updates against one process's on the same seeded state
+    terms_err = _rel_terms(got["first"]["terms"], first_one["terms"])
+    norm_err = abs(got["first"]["grad_norm"] - first_one["grad_norm"]) / \
+        first_one["grad_norm"]
+    straight_err = _rel_terms(got["straight"][0], single[0])
+    for what, err in (("first update's terms", terms_err),
+                      ("first update's grad norm", norm_err),
+                      ("train()'s first step", straight_err)):
+        if not err <= TOL_PARALLEL:
+            raise AssertionError(f"{mode} {what}: {err} relative")
+    leaves, bad = {}, {}
+    for key in ("grads", "params"):
+        errs = _leaf_errors(got["step1"][key], first_one[key])
+        bound = envelope[key]
+        bad[key] = {n: (e, bound[n]) for n, e in errs.items()
+                    if not e <= bound[n]}
+        worst = max(errs, key=errs.get)
+        closest = max(errs, key=lambda n: errs[n] / bound[n])
+        leaves[key] = {"worst": [worst, errs[worst], bound[worst]],
+                       "closest": [closest, errs[closest], bound[closest]]}
+    log(f"[model axis] {mode}: by leaf, [leaf, error, bound] of the largest "
+        f"error and of the largest share of its bound, for the first step's "
+        f"gradients and the parameters after the second update: "
+        f"{json.dumps(leaves)}")
+    if bad["grads"] or bad["params"]:
+        raise AssertionError(f"{mode}: (error, bound) by leaf past its bound:"
+                             f" {json.dumps(bad)}")
+    for a, b in zip(got["straight"][1:], single[1:]):
+        for k in b:
+            if k != "step" and not abs(a[k] - b[k]) <= (
+                    TOL_MODEL_AXIS_STEPS["atol"]
+                    + TOL_MODEL_AXIS_STEPS["rtol"] * abs(b[k])):
+                raise AssertionError(f"{mode} train() step {a['step']} {k}: "
+                                     f"ranks {a[k]}, one process {b[k]}")
+    log(f"[model axis] {mode}: first step's terms within {terms_err:.3e} "
+        f"(train(): {straight_err:.3e}) of one process, grad norm "
+        f"{norm_err:.3e}; train()'s steps 2-{MODEL_AXIS_STEPS} within "
+        f"{json.dumps(TOL_MODEL_AXIS_STEPS)}; each leaf of the first step's "
+        f"gradients and of the parameters after the second update (lr "
+        f"above 0) within TOL_PARALLEL beyond the most that two of one "
+        f"process's {MODEL_AXIS_DRAWS + 1} runs disagree on it; replicated "
+        f"parameters equal on every rank; the resume repeats steps 3-4 bit "
+        f"for bit")
+    for a, b in zip(got["straight"], single):
+        log(json.dumps({"metric": "model_axis_terms", "mode": mode,
+                        "step": a["step"], "ranks": a, "one_process": b}))
+    model = train.create_train_state(model_axis_config(), dev).model
+    model.load_state_dict({k: v.to(dev) for k, v in final.items()})
+    ev = evaluate(model_axis_config(), model)
+    for k in ("rmse", "abs_rel", "delta1", "delta2", "delta3", "miou"):
+        bound = TOL_EVAL_ABS + TOL_EVAL_REL * abs(ev[k])
+        if abs(got["eval"][k] - ev[k]) > bound:
+            raise AssertionError(f"{mode} eval {k}: ranks {got['eval'][k]}, "
+                                 f"one process {ev[k]}")
+    log(json.dumps({"metric": "model_axis_eval", "mode": mode,
+                    "ranks": got["eval"], "one_process": ev}))
+    return {"shard_kernels": shard, "terms_err": terms_err,
+            "leaves": leaves}
+
+
+def phase_model_axis(dev, tag: dict, rank_device: str | None = None) -> dict:
+    """Phase 11: ``dynamic_swarm`` at full width over ranks of this script
+    sharing the one card (gloo), on the model axis: tensor parallelism on a
+    1 x 1 x 2 mesh, spatial sharding on a 2 x 1 x 4 mesh. Held, for each:
+    every call of the path's kernels (``MODEL_AXIS_WRAPPERS``) on every
+    rank's shard tensors within TOL_PARALLEL of its plain version, at the
+    path's width (D 4096 a rank under tensor parallelism, 2048 under
+    spatial sharding) and form (the fused forward's and the SpMM's vector
+    forms); ``train.train`` for MODEL_AXIS_STEPS steps with launch counts
+    reset just before it and read just after (``MODEL_AXIS_PER_STEP`` on
+    every rank, no other kernel); the replicated parameters bit for bit
+    equal on every rank; the resume from step 2 bit for bit; the two held
+    updates from the seeded state (``_first_update``) against one
+    process's on the same batch (the first step's terms and global norm
+    within TOL_PARALLEL relative; each leaf of the first step's gradients
+    and of the parameters after the second update, gathered whole, within
+    ``_leaf_envelope``'s bound from MODEL_AXIS_DRAWS draws of one process
+    on this card); ``train.train``'s first step's terms within
+    TOL_PARALLEL relative of one process's run and its later steps within
+    TOL_MODEL_AXIS_STEPS; ``evaluate`` with the context within TOL_EVAL of
+    one process's evaluation of the ranks' final parameters (the run's
+    checkpoint tensors, whole). Printed: the later steps beside one
+    process's, the step over the ranks (CUDA events
+    and host clock, each rank's median) beside one process's, the host
+    time per collective kind, and under spatial sharding the
+    ``bench_scaling`` and ``bench_overlap`` records over 8 ranks."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    _, records = train.train(model_axis_config(), num_steps=MODEL_AXIS_STEPS,
+                             device=dev)
+    single = _train_terms(records, range(1, MODEL_AXIS_STEPS + 1))
+    first_one = _first_update(model_axis_config(), dev)
+    draws = [_first_update(model_axis_config(), dev, draw=k)
+             for k in range(MODEL_AXIS_DRAWS)]
+    envelope = _leaf_envelope(first_one, draws)
+    for key in envelope:
+        worst = max(envelope[key], key=envelope[key].get)
+        log(f"[model axis] two of one process's {MODEL_AXIS_DRAWS + 1} runs "
+            f"disagree on {key} most at {worst}: "
+            f"{envelope[key][worst] - TOL_PARALLEL:.3e} of its largest element")
+    cfg = model_axis_config()
+    state = train.create_train_state(cfg, dev)
+    step = train.make_train_step(cfg, state.model, state.optimizer)
+    args = _first_batch(cfg, dev)
+    for _ in range(2):
+        step(state, *args)
+    times = [_timed_step(lambda: step(state, *args)[1], dev)
+             for _ in range(MODEL_AXIS_TIMING_STEPS)]
+    one_step = {"step_ms_cuda_events": statistics.median(t[0] for t in times),
+                "step_ms_host": statistics.median(t[1] for t in times)}
+    log(f"[model axis] one process: {MODEL_AXIS_STEPS} steps, the first "
+        f"update and the step timed in {time.perf_counter() - t0:.2f} s")
+    res, failed = {}, []
+    for mode, (d, g, m) in MODEL_AXIS_MESHES.items():
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{mode}_") as tmp:
+            t0 = time.perf_counter()
+            spawn_parallel_ranks(tmp, rank_device, world=d * g * m,
+                                 mode=("--model-axis-rank", mode))
+            ranks_s = time.perf_counter() - t0
+            with open(os.path.join(tmp, "rank0.json")) as f:
+                got = json.load(f)
+            got["step1"] = torch.load(os.path.join(tmp, "step1.pt"),
+                                      weights_only=True)
+            final = torch.load(os.path.join(tmp, "final.pt"),
+                               weights_only=True)
+        log(f"[model axis] {mode}: {d * g * m} ranks in {ranks_s:.2f} s "
+            f"(their barriers: {json.dumps(got['seconds'])})")
+        try:
+            res[mode] = _check_model_axis(mode, got, single, first_one,
+                                          envelope, final, dev)
+        except AssertionError as e:  # the other mode still runs; then raise
+            failed.append(f"{mode}: {e}")
+            log(f"[model axis] {mode} failed: {e}")
+            continue
+        log(json.dumps({
+            "metric": "model_axis_step", "mode": mode, "mesh": got["mesh"],
+            "transport": "gloo through host memory, ranks sharing one card "
+                         "(not how a multi-card deployment runs)",
+            "timing": "per rank: median step by CUDA events on its stream "
+                      "and by host clock; host ms per step in each kind of "
+                      "collective",
+            "ranks": got["timings"], "one_process": one_step,
+            "launches_per_rank_per_step": MODEL_AXIS_PER_STEP[mode], **tag}))
+        for rec in got.get("scaling", []) + got.get("overlap", []):
+            log(json.dumps({"metric": "model_axis_bench", **rec, **tag}))
+    log(f"[model axis] phase {time.perf_counter() - t_phase:.2f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3391,6 +3956,8 @@ def main() -> int:
         phase_data(dev, tag)
     with phase("parallel"):
         phase_parallel(dev, tag)
+    with phase("model axis"):
+        phase_model_axis(dev, tag)
     # Each kernel's launches come from the training path that runs it.
     own_path = {"bsp_fused_parts": "hideg", "ell_max": "max",
                 "block_attention": "block", "ell_sddmm": "ell",
@@ -3413,4 +3980,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        sys.exit(model_axis_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -1,7 +1,9 @@
-"""Benchmark harness, single-device half (port of
-``mrp_gnn_tpu/benchmark.py``): fusion edges/s, the edge block's training
-rate, the train step and per-stage speed-of-light accounting. Emits JSONL
-records with the JAX package's keys; ``"backend"`` is the torch device type.
+"""Benchmark harness (port of ``mrp_gnn_tpu/benchmark.py``): fusion
+edges/s, the edge block's training rate, the train step, per-stage
+speed-of-light accounting, and over ``torch.distributed`` ranks the
+partitioned fusion's weak scaling and the overlap of its value exchange.
+Emits JSONL records with the JAX package's keys; ``"backend"`` is the torch
+device type.
 
 Routes: ``xla_*`` are the plain torch ops, ``pallas_*`` the port's CUDA
 kernels through ``ops/dispatch.get_ops("pallas")`` (on CPU tensors their
@@ -20,9 +22,9 @@ CLI:
   python -m mrp_gnn_tpu_torch.benchmark --what fusion --nodes 8192
   python -m mrp_gnn_tpu_torch.benchmark --what train --config dynamic_swarm
   python -m mrp_gnn_tpu_torch.benchmark --what mfu --config dynamic_swarm
-The multi-device benches (``scaling``, ``overlap``) are not ported yet: they
-are the multi-device half of the benchmark (ROADMAP.md, queue A item 12),
-which drives the mesh of ``parallel/``.
+  python -m mrp_gnn_tpu_torch.benchmark --what scaling \
+      --coordinator localhost:29500 --num_processes 8 --process_id $ID \
+      --dist_backend gloo       # one process per rank; rank 0 prints
 """
 
 from __future__ import annotations
@@ -395,6 +397,266 @@ def bench_mfu(config="five_robot_attention", inner=20,
     return out
 
 
+def _scaling_graph(topology, scenes, robots, comm_radius=4):
+    from mrp_gnn_tpu_torch.graph import batch_homogeneous, scene_edges_for
+    return batch_homogeneous(
+        scenes, robots, scene_edges_for(robots, topology, comm_radius))
+
+
+def _weak_scaling_batch(topology, P, robots, scenes_per_shard):
+    """Graph for the P-shard point of the weak-scaling sweep.
+
+    full:   scenes_per_shard*P dense scenes of `robots` (boundary-heavy:
+            scenes straddle shards whenever robots > nodes-per-shard).
+    radius: ONE growing swarm of 128*P robots, comm radius 4 — per-shard
+            nodes/edges constant, the swarm spans every shard, and the
+            boundary set per shard is a constant halo.
+    """
+    if topology == "radius":
+        return _scaling_graph("radius", 1, 128 * P)
+    return _scaling_graph("full", scenes_per_shard * P, robots)
+
+
+def _shard_inputs(V, feature_dim, rows, device):
+    """This shard's rows of the seeded q, k [V, 64] and v [V, D]."""
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32)
+                             [rows]).to(device)
+            for d in (64, 64, feature_dim)]
+
+
+def _graph_mesh(P: int, rank: int):
+    """A (1, P) mesh of ranks 0..P-1 of the world (every rank calls it: it
+    creates the subgroup), or None on a rank past P."""
+    import torch.distributed as dist
+    from mrp_gnn_tpu_torch.parallel.launch import world
+    from mrp_gnn_tpu_torch.parallel.mesh import Mesh
+    if world()[1] == 1:
+        from mrp_gnn_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh(1, 1)
+    group = dist.new_group(list(range(P)))
+    if rank >= P:
+        return None
+    return Mesh(data=1, graph=P, rank=rank, backend=dist.get_backend(),
+                graph_group=group, graph_ranks=tuple(range(P)))
+
+
+def _share(obj, rank: int):
+    """Rank 0's ``obj`` on every rank (itself in a world of one rank)."""
+    import torch.distributed as dist
+    from mrp_gnn_tpu_torch.parallel.launch import world
+    if world()[1] == 1:
+        return obj
+    box = [obj if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def bench_scaling(max_devices=None, robots=8, scenes_per_shard=16,
+                  feature_dim=2048, inner=30, topology="full",
+                  exchange="boundary", device=None) -> list:
+    """Weak-scaling efficiency of the partitioned fusion over the graph axis,
+    on ranks 0..P-1 of the ``torch.distributed`` world for P = 1, 2, 4, ...
+    up to the world (or ``max_devices``); the other ranks wait at a barrier.
+
+    Per-shard work is held constant; efficiency(P) =
+    edges/s(P) / (P * edges/s(1)). topology: "full" (dense swarms — most
+    edges boundary) or "radius" (sparse). exchange: "boundary" |
+    "all_gather". Every rank calls it and returns rank 0's records (its
+    timing: the exchange keeps the ranks in step). The fusion runs on the
+    plain ops (``dispatch.get_ops("xla")``), as the JAX function's does;
+    the port's plain local aggregate is its gather and einsum
+    (``ops/reference.ell_aggregate``) where JAX's is a segment sum, and with
+    gloo each exchange goes through host memory.
+    """
+    import torch.distributed as dist
+    from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
+    from mrp_gnn_tpu_torch.ops import dispatch
+    from mrp_gnn_tpu_torch.parallel.fused import make_partitioned_edge_fusion
+    from mrp_gnn_tpu_torch.parallel.launch import rank_device, world
+    from mrp_gnn_tpu_torch.parallel.partition import (boundary_fraction,
+                                                      exchange_rows,
+                                                      partition_graph)
+    rank, size = world()
+    device = rank_device(device) if size > 1 else resolve_device(device)
+    ndev = min(max_devices or size, size)
+    ops = dispatch.get_ops("xla", device)
+    out, base, P = [], None, 1
+    while P <= ndev:
+        gb = _weak_scaling_batch(topology, P, robots, scenes_per_shard)
+        V = gb.max_nodes
+        E = int(gb.n_edges)
+        extras, sec = {}, None
+        if P == 1:
+            if rank == 0:
+                q, k, v = _shard_inputs(V, feature_dim, slice(None), device)
+                g = gb.to(device)
+
+                @torch.no_grad()
+                def body(v, g=g, q=q, k=k):
+                    return (default_edge_fusion(ops, "attention", q, k, v, g)
+                            * 0.5 + v * 0.5)
+
+                sec = time_chained(body, v, inner)
+        else:
+            mesh = _graph_mesh(P, rank)
+            plan = partition_graph(gb, P)
+            extras = {"boundary_fraction": round(boundary_fraction(plan), 4),
+                      "recv_rows_per_shard": exchange_rows(plan)[
+                          "boundary" if exchange == "boundary"
+                          else "all_gather"]}
+            if mesh is not None:
+                n = plan.nodes_per_shard
+                q, k, v = _shard_inputs(V, feature_dim,
+                                        slice(rank * n, (rank + 1) * n),
+                                        device)
+                edge_fn = make_partitioned_edge_fusion(mesh, plan,
+                                                       exchange=exchange)
+
+                @torch.no_grad()
+                def body(v, edge_fn=edge_fn, q=q, k=k):
+                    return (edge_fn(ops, "attention", q, k, v, None) * 0.5
+                            + v * 0.5)
+
+                sec = time_chained(body, v, inner)
+        if size > 1:
+            dist.barrier()
+        sec = _share(sec, rank)
+        eps = E / sec
+        if base is None:
+            base = eps
+        eff = eps / (base * P)
+        rec = {"bench": "scaling", "devices": P, "edges": E,
+               "topology": topology, "exchange": exchange,
+               "edges_per_s": eps, "efficiency": eff,
+               "backend": device.type, **extras}
+        out.append(rec)
+        if rank == 0:
+            _log(f"P={P} [{topology}/{exchange}]: {eps:,.0f} edges/s, "
+                 f"weak-scaling eff {eff:.2%} {extras}")
+        P *= 2
+    return out
+
+
+def _range_ms(events, name: str, device_type) -> list:
+    """[(start, end)] in ms of the profiler ranges ``name``, in time order."""
+    return sorted((e.time_range.start / 1e3, e.time_range.end / 1e3)
+                  for e in events if e.name == name
+                  and e.device_type == device_type)
+
+
+def profile_window(fn, device) -> dict:
+    """A call of ``fn`` under ``torch.profiler``: the window of its value
+    exchange (the last ``halo.post:values`` range's end to its
+    ``halo.wait:values`` range's end, host clock) and the compute inside it
+    and in all: the card's kernel time (CUDA), or the CPU's own op time (the
+    CPU), in ms. The window stands in for the JAX package's count of
+    scheduled HLO ops between the collective's start and its done
+    (``hlo_overlap_window``), which torch has no counterpart of."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    for _ in range(2):  # the profiler's first trace pays its start-up
+        with profile(activities=acts) as prof:
+            fn()
+            _sync(device)
+    events = prof.events()
+    posts = _range_ms(events, "halo.post:values", DeviceType.CPU)
+    waits = _range_ms(events, "halo.wait:values", DeviceType.CPU)
+    if not posts or not waits:
+        return {"n_exchanges": 0, "overlap_window_ms": 0.0,
+                "compute_in_window_ms": 0.0, "compute_ms": None}
+    lo, hi = posts[-1][1], waits[-1][1]
+    if cuda:
+        spans = [(e.time_range.start / 1e3, e.time_range.end / 1e3)
+                 for e in events if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("halo.", "Memcpy", "Memset"))]
+        inside = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in spans)
+        total = sum(b - a for a, b in spans)
+    else:  # the calling thread's ops (gloo's threads run its transfers)
+        thread = next(e.thread for e in events
+                      if e.name == "halo.post:values")
+        ops = [e for e in events if e.device_type == DeviceType.CPU
+               and e.thread == thread
+               and not e.name.startswith(("halo.", "gloo:"))]
+        total = sum(e.self_cpu_time_total for e in ops) / 1e3
+        inside = sum(e.self_cpu_time_total for e in ops
+                     if e.time_range.start / 1e3 >= lo
+                     and e.time_range.end / 1e3 <= hi) / 1e3
+    return {"n_exchanges": len(posts) + len(_range_ms(
+                events, "halo.post:keys", DeviceType.CPU)),
+            "overlap_window_ms": hi - lo, "compute_in_window_ms": inside,
+            "compute_ms": total}
+
+
+def bench_overlap(devices=None, feature_dim=4096, inner=30,
+                  topology="radius", device=None) -> list:
+    """Overlap of the boundary exchange with the local aggregate, over the
+    ranks of the ``torch.distributed`` world (a (1, world) mesh; every rank
+    calls it and returns rank 0's records).
+
+    For overlap on and off, in turns (on, off, on, off; the faster turn of
+    each kept): the time per call, and from a profile of one call on rank 0
+    the window in which the value exchange is in flight and the compute
+    inside it (:func:`profile_window`, in the place of the JAX package's
+    HLO window). A summary record gives ``speedup_vs_serialized``. Plain
+    ops, as in :func:`bench_scaling`.
+    """
+    from mrp_gnn_tpu_torch.ops import dispatch
+    from mrp_gnn_tpu_torch.parallel.fused import make_partitioned_edge_fusion
+    from mrp_gnn_tpu_torch.parallel.launch import rank_device, world
+    from mrp_gnn_tpu_torch.parallel.partition import partition_graph
+    rank, size = world()
+    device = rank_device(device) if size > 1 else resolve_device(device)
+    ndev = devices or size
+    ops = dispatch.get_ops("xla", device)
+    gb = _weak_scaling_batch(topology, ndev, 8, 2)
+    E = int(gb.n_edges)
+    plan = partition_graph(gb, ndev)
+    mesh = _graph_mesh(ndev, rank)
+    n = plan.nodes_per_shard
+    q, k, v = _shard_inputs(gb.max_nodes, feature_dim,
+                            slice(rank * n, (rank + 1) * n), device)
+    bodies = {}
+    for overlap in (True, False):
+        edge_fn = make_partitioned_edge_fusion(mesh, plan, overlap=overlap)
+
+        @torch.no_grad()
+        def one(v, edge_fn=edge_fn):
+            return edge_fn(ops, "attention", q, k, v, None) * 0.5 + v * 0.5
+
+        bodies[overlap] = one
+    timings, windows = {}, {}
+    for overlap in (True, False, True, False):
+        sec = time_chained(bodies[overlap], v, inner)
+        timings[overlap] = min(timings.get(overlap, sec), sec)
+        if overlap not in windows:
+            win = profile_window(lambda: bodies[overlap](v), device)
+            windows[overlap] = win if rank == 0 else None
+    timings = _share(timings, rank)
+    windows = _share(windows, rank)
+    out = []
+    for overlap in (True, False):
+        sec = timings[overlap]
+        out.append({"bench": "overlap", "overlap": overlap, "devices": ndev,
+                    "topology": topology, "edges": E,
+                    "feature_dim": feature_dim, "sec_per_call": sec,
+                    "edges_per_s": E / sec, "backend": device.type,
+                    **windows[overlap]})
+        if rank == 0:
+            _log(f"overlap={overlap}: {sec * 1e6:.0f} us/call, window "
+                 f"{windows[overlap]['overlap_window_ms']:.3f} ms with "
+                 f"{windows[overlap]['compute_in_window_ms']:.3f} ms of "
+                 "compute inside")
+    gain = timings[False] / timings[True] - 1.0
+    if rank == 0:
+        _log(f"overlap speedup vs serialized: {gain:+.2%}")
+    out.append({"bench": "overlap_summary", "devices": ndev,
+                "speedup_vs_serialized": gain})
+    return out
+
+
 def main(argv=None) -> list:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--what", default="fusion",
@@ -410,14 +672,22 @@ def main(argv=None) -> list:
     p.add_argument("--out", default=None, help="append JSONL to this file")
     p.add_argument("--profile", default=None,
                    help="capture a torch.profiler trace into this directory")
+    p.add_argument("--topology", default="full", choices=["full", "radius"])
+    p.add_argument("--exchange", default="boundary",
+                   choices=["boundary", "all_gather"])
     p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card; over ranks "
+                        "the card of the rank's local rank)")
+    from mrp_gnn_tpu_torch.train import add_multihost_args, init_multihost
+    add_multihost_args(p)
     args = p.parse_args(argv)
-    if args.what in ("scaling", "overlap"):
-        raise NotImplementedError(
-            f"--what {args.what} is the benchmark's multi-device half, not "
-            "ported yet (ROADMAP.md, queue A item 12)")
-    device = resolve_device(args.device)
+    init_multihost(args)
+    if args.coordinator is None:
+        device = resolve_device(args.device)
+    else:
+        from mrp_gnn_tpu_torch.parallel.launch import rank_device
+        device = rank_device(args.device)
+    lead = torch.distributed.get_rank() == 0 if args.coordinator else True
 
     recs = []
     if args.profile:
@@ -440,12 +710,20 @@ def main(argv=None) -> list:
                   if args.encoder_channels else None)
             recs += bench_mfu(args.config, inner=max(args.inner // 2, 10),
                               encoder_channels=ch, device=device)
-    for r in recs:
+        if args.what in ("scaling", "all"):
+            recs += bench_scaling(inner=args.inner, topology=args.topology,
+                                  exchange=args.exchange, device=device)
+        if args.what in ("overlap", "all"):
+            recs += bench_overlap(inner=args.inner, topology=args.topology,
+                                  device=device)
+    for r in recs if lead else ():
         line = json.dumps(r)
         print(line, flush=True)
         if args.out:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
+    if args.coordinator is not None:
+        torch.distributed.destroy_process_group()
     return recs
 
 

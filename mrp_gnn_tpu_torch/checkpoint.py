@@ -18,6 +18,13 @@ state rides beside a checkpoint as ``data_state_<step>.json``, under the
 JAX package's name. Restoring loads onto the device of the state it
 restores into, so a checkpoint written on the card loads in a CPU run.
 Orbax checkpoints of the JAX package cannot be read here.
+
+A checkpoint always holds whole tensors, as orbax's global arrays do: a
+tensor-parallel run passes its gathered leaves and moments
+(``ParallelContext.full_tensors``), and every run restores into a whole
+model before its shards are cut (``ParallelContext.shard_state``). So a
+checkpoint of a tensor-parallel run restores into one process, and one of
+a single process into a tensor-parallel run.
 """
 
 from __future__ import annotations
@@ -61,18 +68,21 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for m in map(_CKPT.match,
                                                    os.listdir(self._dir)) if m)
 
-    def save(self, step: int, state,
-             data_state: Optional[str] = None) -> None:
+    def save(self, step: int, state, data_state: Optional[str] = None,
+             tensors: Optional[tuple] = None) -> None:
         """Write ``state`` (a ``train.TrainState``) as step ``step``, with
         ``data_state`` beside it, then drop all but the newest
-        ``max_to_keep`` checkpoints."""
+        ``max_to_keep`` checkpoints. ``tensors``: (model state_dict, mu,
+        nu) to write in place of the state's own (whole tensors of a
+        sharded state)."""
         os.makedirs(self._dir, exist_ok=True)
         opt = state.optimizer
+        sd, mu, nu = tensors or (state.model.state_dict(), opt.mu, opt.nu)
         payload = {"step": int(state.step),
                    "best_rmse": float(state.best_rmse),
                    "best_step": int(state.best_step),
-                   "model": state.model.state_dict(),
-                   "optimizer": {"mu": opt.mu, "nu": opt.nu,
+                   "model": sd,
+                   "optimizer": {"mu": mu, "nu": nu,
                                  "count": int(opt.count)}}
         if data_state is not None:
             # Written first: a checkpoint is never visible without its

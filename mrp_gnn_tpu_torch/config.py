@@ -130,13 +130,14 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     # Mesh axes: data (scene-graph batch shards) x graph (edge partitions)
-    # x model (channel shards; not ported, refused). In the port each mesh
-    # position is one torch.distributed rank (parallel/mesh.py).
+    # x model (tensor-parallel channel shards; parallel/tp.py). In the port
+    # each mesh position is one torch.distributed rank (parallel/mesh.py).
     data_axis_size: int = 1
     graph_axis_size: int = 1
     model_axis_size: int = 1
-    # The JAX package shards image rows over the "model" axis with it; not
-    # ported, refused (ROADMAP.md, queue A item 11).
+    # Use the "model" axis for image-row sharding of every feature map
+    # instead of channel tensor parallelism (parallel/spatial.py: halo rows,
+    # GroupNorm statistics over the axis); parameters stay replicated.
     spatial_sharding: bool = False
     # Backend for the fusion ops: "xla" | "pallas".
     ops_impl: str = "xla"

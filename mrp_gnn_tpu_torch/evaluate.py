@@ -9,8 +9,10 @@ metric sums stay on the device and are read back once, at the end.
 
 With a ``ParallelContext`` (``pctx``; every rank calls ``evaluate``) each
 rank renders and evaluates its own node rows through the partitioned
-fusion, the metric sums are summed over the world in one all-reduce, and
-every rank returns the same metrics.
+fusion, with the model axis's shard context (the model holds this rank's
+shards under tensor parallelism; under spatial sharding each rank of a
+node block keeps its image rows), the metric sums are summed over the
+batch group in one all-reduce, and every rank returns the same metrics.
 
 CLI: python -m mrp_gnn_tpu_torch.evaluate --config dynamic_swarm \\
         --checkpoint_dir /tmp/ckpt [--device cpu]
@@ -43,8 +45,9 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
     masked); returns a flat dict of float metrics.
 
     pctx: a ``parallel.context.ParallelContext``: the model's fusion layers
-    run its partitioned fusion for the call, on this rank's node rows, and
-    the sums are global.
+    run its partitioned fusion for the call, on this rank's node rows, the
+    model runs with ``pctx.shard`` (``model`` holds this rank's shards under
+    tensor parallelism: ``pctx.shard_state``), and the sums are global.
     dump_dir: write qualitative prediction panels (utils/viz.py) for the
     first eval batch (not under a pctx: no rank holds a whole batch).
     """
@@ -55,8 +58,9 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
     model.eval()
     acc = None
     n_batches = 0
-    node_range, swapped = None, []
+    node_range, swapped, shard = None, [], None
     if pctx is not None:
+        shard = pctx.shard
         d = cfg.data
         node_range = pctx.local_node_range(
             d.max_nodes or d.scenes_per_batch * d.num_robots)
@@ -71,7 +75,7 @@ def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
                 images, depth, seg, graph = (
                     pctx.shard_batch(batch) if pctx is not None
                     else batch_to_device(batch, device))
-                out = model(images, graph, ops_impl=ops_impl)
+                out = model(images, graph, ops_impl=ops_impl, shard=shard)
                 res = {}
                 if "depth" in out:
                     res["depth"] = M.depth_metrics_accumulate(
@@ -149,6 +153,8 @@ def main(argv=None):
             raise FileNotFoundError(f"no checkpoint in {args.checkpoint_dir}")
         if lead:
             print(f"[eval] restored step {mgr.latest_step}")
+    if pctx is not None:
+        pctx.shard_state(state)
     results = evaluate(cfg, state.model, pctx=pctx, dump_dir=args.dump_dir)
     if lead:
         if args.dump_dir and pctx is None:

@@ -9,12 +9,15 @@ gradient. Shapes are the model's NHWC outputs: depth [V, H, W], seg logits
 Every term is a ratio of sums over the valid pixels of the whole batch
 (berHu's switch point a max over it). Each term is computed in two parts:
 its local sums, then a function of those sums. Under a mesh (``mesh``, a
-``parallel.mesh.Mesh``) each rank holds its own node rows, so the sums are
-taken over the world in between: every term's sums of a call go into one
-all-reduce whose backward is the identity (``Mesh.world_sum``), so each
-rank's gradient is its own share of the global loss's; the berHu max's
-gradient reaches only the rank that holds it (``Mesh.world_max``). Without
-a mesh the terms are computed as before.
+``parallel.mesh.Mesh``) each rank holds its own node rows (under spatial
+sharding its image rows of them), so the sums are taken over the mesh's
+batch group in between (the world; under tensor parallelism the ranks of
+this rank's model index, since the ranks of a model group compute the same
+loss): every term's sums of a call go into one all-reduce whose backward
+is the identity (``Mesh.world_sum``), so each rank's gradient is its own
+share of the global loss's; the berHu max's gradient reaches only the rank
+that holds it (``Mesh.world_max``). Without a mesh the terms are computed
+as before.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def _seg_ce_parts(logits, labels, node_mask, mesh=None) -> tuple:
 
 def _terms(mesh, parts: dict) -> dict:
     """Each term of ``parts`` (name: (local sums, finish)) from its sums,
-    taken over the world under a mesh in one collective for them all."""
+    taken over the batch group under a mesh in one collective for them
+    all."""
     sums = [s for local, _ in parts.values() for s in local]
     if mesh is not None:
         sums = mesh.world_sum(sums)
@@ -128,8 +132,8 @@ def total_loss(outputs: dict, batch: dict, node_mask: torch.Tensor,
                depth_loss: str = "l1", mesh=None) -> tuple:
     """Weighted multi-task loss; returns (loss, per-term dict) with the JAX
     package's term names (``depth_<kind>``, ``seg_ce``, ``total``).
-    ``mesh``: sums over the world, one all-reduce for every term (berHu's
-    max takes one more); every rank gets the global terms."""
+    ``mesh``: sums over its batch group, one all-reduce for every term
+    (berHu's max takes one more); every rank gets the global terms."""
     parts, weights = {}, {}
     if "depth" in outputs:
         name = f"depth_{depth_loss}"

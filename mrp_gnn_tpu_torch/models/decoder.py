@@ -1,5 +1,6 @@
 """Dense prediction decoder with skip connections and depth / seg heads
-(port of ``mrp_gnn_tpu/models/decoder.py``). NCHW inside."""
+(port of ``mrp_gnn_tpu/models/decoder.py``). NCHW inside; ``shard`` as in
+``models/encoder.py``."""
 
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class Decoder(nn.Module):
             x_ch = out_ch
         self.out_channels = x_ch
 
-    def forward(self, skips: list, bottleneck: torch.Tensor) -> torch.Tensor:
+    def forward(self, skips: list, bottleneck: torch.Tensor,
+                shard=None) -> torch.Tensor:
         x = bottleneck
         # skips[i] has the resolution of stage i's output, so stage i's
         # up-block consumes skips[i-1].
@@ -45,7 +47,7 @@ class Decoder(nn.Module):
             x = upsample2x(x)
             if i > 0:
                 x = torch.cat([x, skips[i - 1]], dim=1)
-            x = getattr(self, f"up{i}")(x)
+            x = getattr(self, f"up{i}")(x, shard)
         return x
 
 
@@ -59,8 +61,11 @@ class DepthHead(nn.Module):
         self.max_depth = max_depth
         self.out = Conv(in_ch, 1, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        raw = self.out(x)[:, 0]
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        raw = self.out(x, shard)
+        if shard is not None:
+            raw = shard.whole(raw, self.out)
+        raw = raw[:, 0]
         return self.min_depth + (self.max_depth - self.min_depth) * torch.sigmoid(raw)
 
 
@@ -70,5 +75,6 @@ class SegHead(nn.Module):
         super().__init__()
         self.out = Conv(in_ch, num_classes, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(x)
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        y = self.out(x, shard)
+        return y if shard is None else shard.whole(y, self.out)

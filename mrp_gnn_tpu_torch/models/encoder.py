@@ -7,6 +7,11 @@ modules with ``dtype=bfloat16`` do. Submodule names mirror the flax
 parameter tree (``Conv_0``, ``GroupNorm_0``, ...), so ``models/transplant``
 maps weights by name.
 
+Every layer's forward takes an optional shard context (``shard``: a
+``parallel.tp.TensorParallel`` or ``parallel.spatial.SpatialSharding``,
+under a mesh with a model axis), to which it hands its computation; with
+none (the default) the layer computes as one process does.
+
 Seeded init follows flax's defaults: kernels lecun-normal (truncated
 normal, fan-in), biases zeros, GroupNorm scale ones.
 """
@@ -61,8 +66,14 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = same_pad(x.to(self.dtype), self.weight.shape[-1], self.stride)
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is not None:
+            return shard.conv(self, x)
+        return self.conv(same_pad(x.to(self.dtype), self.weight.shape[-1],
+                                  self.stride))
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution of input padded already."""
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), b, stride=self.stride)
 
@@ -81,7 +92,9 @@ class Dense(nn.Module):
         lecun_normal_(self.weight, self.weight.shape[1], generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is not None:
+            return shard.dense(self, x)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
 
@@ -89,6 +102,8 @@ class Dense(nn.Module):
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm``: eps 1e-6 (torch's default is 1e-5), statistics
     in float32, result in ``dtype``."""
+
+    eps = 1e-6
 
     def __init__(self, num_groups: int, ch: int,
                  dtype: torch.dtype = torch.float32):
@@ -102,9 +117,11 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is not None:
+            return shard.group_norm(self, x)
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                         eps=1e-6)
+                         eps=self.eps)
         return y.to(self.dtype)
 
 
@@ -118,8 +135,8 @@ class ConvBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(min(norm_groups, features), features,
                                      dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.GroupNorm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return F.relu(self.GroupNorm_0(self.Conv_0(x, shard), shard))
 
 
 class ResidualBlock(nn.Module):
@@ -131,8 +148,9 @@ class ResidualBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(min(norm_groups, features), features,
                                      dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.GroupNorm_0(self.Conv_0(self.ConvBlock_0(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        h = self.GroupNorm_0(self.Conv_0(self.ConvBlock_0(x, shard), shard),
+                             shard)
         return F.relu(x + h)
 
 
@@ -156,11 +174,11 @@ class Encoder(nn.Module):
             self.add_module(f"res{i}", ResidualBlock(ch, norm_groups, dtype))
             prev = ch
 
-    def forward(self, x: torch.Tensor):
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, shard=None):
+        x = self.stem(x, shard)
         skips = []
         for i in range(self.num_stages):
-            x = getattr(self, f"down{i}")(x)
-            x = getattr(self, f"res{i}")(x)
+            x = getattr(self, f"down{i}")(x, shard)
+            x = getattr(self, f"res{i}")(x, shard)
             skips.append(x)
         return skips, x

@@ -90,42 +90,54 @@ class GraphFusionLayer(nn.Module):
         self.update_norm = GroupNorm(min(norm_groups, C), C, dtype)
 
     def forward(self, feats: torch.Tensor, graph: GraphBatch,
-                ops_impl: str | None = None) -> torch.Tensor:
-        """feats: [V, C, h, w] bottleneck maps -> fused [V, C, h, w]."""
+                ops_impl: str | None = None, shard=None) -> torch.Tensor:
+        """feats: [V, C, h, w] bottleneck maps -> fused [V, C, h, w].
+
+        ``shard`` (see ``models/encoder.py``): under tensor parallelism the
+        edge block runs on this rank's channels of the values, with q and k
+        whole, and the message is gathered; under spatial sharding, on this
+        rank's rows, with the pooled features summed over its group."""
         V, C, h, w = feats.shape
         ops = dispatch.get_ops(ops_impl or self.ops_impl, feats.device)
         edge_fn = self.edge_fusion_fn or default_edge_fusion
         heads = self.heads
 
         # Values in NHWC order, the layout the JAX layer flattens.
-        values = self.value(feats).permute(0, 2, 3, 1)        # [V, h, w, C]
+        values = self.value(feats, shard).permute(0, 2, 3, 1)  # [V, h, w, Cl]
         if self.aggregation == "attention":
-            pooled = feats.mean(dim=(2, 3))                    # [V, C]
-            q = self.query(pooled)
-            k = self.key(pooled)
+            pooled = (feats.mean(dim=(2, 3)) if shard is None
+                      else shard.mean_hw(feats))              # [V, C]
+            q = self.query(pooled, shard)
+            k = self.key(pooled, shard)
+            if shard is not None:
+                q, k = shard.attention_keys(self, q, k)
+            if heads > 1:
+                q = q.reshape(V, heads, self.attention_dim)
+                k = k.reshape(V, heads, self.attention_dim)
         else:
             q = k = None
 
-        if heads > 1:
-            # [V, h*w, heads, C/heads] -> per-head flat feature vectors.
-            vh = values.reshape(V, h * w, heads, C // heads)
-            vh = vh.transpose(1, 2).reshape(V, heads, h * w * (C // heads))
-            qh = q.reshape(V, heads, self.attention_dim)
-            kh = k.reshape(V, heads, self.attention_dim)
-            msg = torch.stack(
-                [edge_fn(ops, "attention", qh[:, i].contiguous(),
-                         kh[:, i].contiguous(), vh[:, i].contiguous(), graph)
-                 for i in range(heads)], dim=1)
-            msg = msg.reshape(V, heads, h * w, C // heads)
-            msg = msg.transpose(1, 2).reshape(V, h, w, C)
-        else:
-            flat_values = values.reshape(V, h * w * C)
-            msg = edge_fn(ops, self.aggregation, q, k, flat_values, graph)
-            msg = msg.reshape(V, h, w, C)
+        # Each head scores and aggregates its own channel group; the values
+        # hold global channels [c0, c0 + Cl) (a tensor-parallel shard).
+        c0 = 0 if shard is None else shard.channel_offset(self.value)
+        Cl, Ch = values.shape[-1], C // heads
+        msgs = []
+        for i in range(heads):
+            lo, hi = max(c0, i * Ch), min(c0 + Cl, (i + 1) * Ch)
+            if lo >= hi:
+                continue
+            flat = values[..., lo - c0:hi - c0].reshape(V, -1)
+            qi, ki = ((q, k) if heads == 1
+                      else (q[:, i].contiguous(), k[:, i].contiguous()))
+            msgs.append(edge_fn(ops, self.aggregation, qi, ki, flat, graph)
+                        .reshape(V, h, w, hi - lo))
+        msg = msgs[0] if len(msgs) == 1 else torch.cat(msgs, dim=-1)
         msg = msg.permute(0, 3, 1, 2).to(feats.dtype)
+        if shard is not None:
+            msg = shard.whole(msg, self.value)
         # Fuse ego features with the aggregated neighbourhood message.
-        fused = self.update(torch.cat([feats, msg], dim=1))
-        fused = self.update_norm(fused)
+        fused = self.update(torch.cat([feats, msg], dim=1), shard)
+        fused = self.update_norm(fused, shard)
         out = feats + F.relu(fused)
         # Zero padded node slots so downstream stats never see them.
         return out * graph.node_mask[:, None, None, None].to(out.dtype)

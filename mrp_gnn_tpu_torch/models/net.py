@@ -63,20 +63,23 @@ class MultiRobotPerceptionNet(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, images: torch.Tensor, graph: GraphBatch,
-                ops_impl: str | None = None) -> dict:
-        """``ops_impl`` overrides the backend given at construction."""
+                ops_impl: str | None = None, shard=None) -> dict:
+        """``ops_impl`` overrides the backend given at construction.
+        ``shard``: the model axis's context (``ParallelContext.shard``):
+        under tensor parallelism every output is whole; under spatial
+        sharding each holds this rank's image rows."""
         cfg = self.config
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        skips, bottleneck = self.encoder(x)
+        skips, bottleneck = self.encoder(x, shard)
         out = {"bottleneck": _nhwc(bottleneck)}
         fused = bottleneck
         for i in range(self.num_fusion_layers):
-            fused = getattr(self, f"fusion{i}")(fused, graph, ops_impl)
+            fused = getattr(self, f"fusion{i}")(fused, graph, ops_impl, shard)
         out["fused"] = _nhwc(fused)
-        dec = self.decoder(skips, fused)
+        dec = self.decoder(skips, fused, shard)
         out["decoder"] = _nhwc(dec)
         if cfg.predict_depth:
-            out["depth"] = self.depth_head(dec).float()
+            out["depth"] = self.depth_head(dec, shard).float()
         if cfg.num_seg_classes > 0:
-            out["seg_logits"] = _nhwc(self.seg_head(dec)).float()
+            out["seg_logits"] = _nhwc(self.seg_head(dec, shard)).float()
         return out

@@ -1,18 +1,24 @@
-"""Parallel context: mesh, partition plan and the partitioned fusion, wired
-from an ExperimentConfig (port of ``mrp_gnn_tpu/parallel/context.py``).
+"""Parallel context: mesh, partition plan, the partitioned fusion and the
+model axis, wired from an ExperimentConfig (port of
+``mrp_gnn_tpu/parallel/context.py``).
 
-Config 5 (``swarm_partitioned``) trains with its node axis split over a
-("data", "graph") mesh of ranks and the fusion's edge block replaced by the
-partitioned one (``parallel/fused.py``). Rank r holds node block r of
-every batch (:meth:`ParallelContext.local_node_range`, contiguous): its
-images, depth and seg rows, and a graph whose ``node_mask`` is its rows'
-and whose ``partition_plan`` is its block of the plan. Everything else in
-the trainer is unchanged: the encoder, decoder and heads work per view.
+Config 5 (``swarm_partitioned``) trains with its node axis split over the
+("data", "graph") positions of a mesh of ranks and the fusion's edge block
+replaced by the partitioned one (``parallel/fused.py``). Rank r holds node
+block ``r // model`` of every batch
+(:meth:`ParallelContext.local_node_range`, contiguous): its images, depth
+and seg rows, and a graph whose ``node_mask`` is its rows' and whose
+``partition_plan`` is its block of the plan. A mesh with a graph axis of 1
+and more than one node block (data parallelism) partitions each replica's
+graph into one shard, so the same fusion serves it with no exchange; a mesh
+whose only axis is the model axis needs no plan and keeps the single-device
+edge block on every rank, as the JAX package's "DP/TP-only mesh" does.
 
-A mesh with a graph axis of 1 (data parallelism alone) partitions each
-replica's graph into one shard, so the same fusion serves it with no
-exchange. Not ported yet, raising NotImplementedError that names ROADMAP.md
-queue A item 11: ``spatial_sharding`` and a model axis > 1.
+The model axis (``ParallelConfig.model_axis_size`` > 1) gives the model a
+shard context (:attr:`ParallelContext.shard`, passed to its forward): a
+``parallel.tp.TensorParallel`` (output channels of the parameters) or, with
+``spatial_sharding``, a ``parallel.spatial.SpatialSharding`` (image rows;
+each rank keeps its rows of the images, depth and seg).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from mrp_gnn_tpu_torch.config import ExperimentConfig
 from mrp_gnn_tpu_torch.parallel.fused import make_partitioned_edge_fusion
 from mrp_gnn_tpu_torch.parallel.launch import rank_device
-from mrp_gnn_tpu_torch.parallel.mesh import Mesh, _not_ported, make_mesh
+from mrp_gnn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mrp_gnn_tpu_torch.parallel.partition import (EdgePartitionPlan,
                                                   PlanCapacities,
                                                   partition_batch,
@@ -36,25 +42,34 @@ from mrp_gnn_tpu_torch.parallel.partition import (EdgePartitionPlan,
 @dataclasses.dataclass(eq=False)
 class ParallelContext:
     mesh: Mesh
-    plan: EdgePartitionPlan
-    edge_fusion_fn: Callable
+    plan: EdgePartitionPlan | None     # None: no node partition (model axis)
+    edge_fusion_fn: Callable | None
     device: torch.device
     # Dynamic topology: the capacities pinning every per-batch plan (None
     # for a static topology, whose plan is ``plan``).
     dyn_caps: PlanCapacities | None = None
     num_replicas: int = 1
+    # The model axis's context for the model's forward (tp.TensorParallel
+    # or spatial.SpatialSharding); None without a model axis.
+    shard: object | None = None
     # the last host graph and its local view, replaced as one tuple (the
     # training stream's producer thread and an evaluation both attach)
     _local: tuple = dataclasses.field(default=(None, None), init=False,
                                       repr=False)
 
+    @property
+    def spatial(self) -> bool:
+        return self.mesh.spatial
+
     def local_node_range(self, V: int) -> tuple:
-        """This rank's [lo, hi) of the global node axis of V slots."""
-        if V % self.mesh.size:
-            raise ValueError(f"{V} node slots do not divide over "
-                             f"{self.mesh.size} ranks")
-        n = V // self.mesh.size
-        return self.mesh.rank * n, (self.mesh.rank + 1) * n
+        """This rank's [lo, hi) of the global node axis of V slots: node
+        block ``rank // model`` of ``data * graph``."""
+        blocks = self.mesh.blocks
+        if V % blocks:
+            raise ValueError(f"{V} node slots do not divide over {blocks} "
+                             "node blocks")
+        n = V // blocks
+        return self.mesh.block * n, (self.mesh.block + 1) * n
 
     def attach_plan(self, graph):
         """``graph`` with this rank's block of the partition plan (dynamic
@@ -65,9 +80,8 @@ class ParallelContext:
         last, local = self._local
         if graph is last:
             return local
-        row = self.mesh.data_index * self.mesh.graph + self.mesh.graph_index
         plan = (partition_batch(graph, self.num_replicas, self.mesh.graph,
-                                self.dyn_caps).shard(row)
+                                self.dyn_caps).shard(self.mesh.block)
                 if self.dyn_caps is not None else None)
         lo, hi = self.local_node_range(graph.max_nodes)
         local = dataclasses.replace(graph, node_mask=graph.node_mask[lo:hi],
@@ -77,8 +91,9 @@ class ParallelContext:
 
     def local_batch(self, batch: dict) -> dict:
         """A pipeline batch as this rank's (host arrays): its node rows (the
-        batch's own when it carries "node_range", else sliced here) and
-        :meth:`attach_plan`'s graph."""
+        batch's own when it carries "node_range", else sliced here), under
+        spatial sharding its image rows of them, and :meth:`attach_plan`'s
+        graph."""
         graph = batch["graph"]
         lo, hi = self.local_node_range(graph.max_nodes)
         out = {"graph": self.attach_plan(graph)}
@@ -90,6 +105,9 @@ class ParallelContext:
                                      f"not this rank's {(lo, hi)}")
             elif v.shape[0] == graph.max_nodes:
                 v = v[lo:hi]
+            if self.spatial:
+                r0, r1 = self.shard.rows(v.shape[1])
+                v = np.ascontiguousarray(v[:, r0:r1])
             out[k] = v
         return out
 
@@ -103,9 +121,21 @@ class ParallelContext:
 
     def shard_state(self, state) -> None:
         """Make rank 0's parameters and optimizer moments every rank's
-        (broadcast over the world group), so that all ranks start equal."""
+        (broadcast over the world group), so that all ranks start equal,
+        from a whole model: the seeded one, or a restored checkpoint. Under
+        tensor parallelism each rank then keeps its shard of every sharded
+        leaf and of its moments (``tp.TensorParallel.shard_state``)."""
         opt = state.optimizer
         self.mesh.broadcast_([*state.model.parameters(), *opt.mu, *opt.nu])
+        if self.shard is not None:
+            self.shard.shard_state(state)
+
+    def full_tensors(self, state):
+        """(model state_dict, mu, nu) with every leaf whole, for a
+        checkpoint, or None where the state holds them whole already; under
+        tensor parallelism a collective of the model group, which every
+        rank calls."""
+        return None if self.shard is None else self.shard.full_tensors(state)
 
 
 def replica_graph_for(cfg: ExperimentConfig):
@@ -132,13 +162,23 @@ def make_parallel_context(cfg: ExperimentConfig,
     trivial mesh. Every rank must call it (it creates process subgroups).
     ``device``: this rank's device (default ``launch.rank_device``)."""
     pc = cfg.parallel
-    if pc.spatial_sharding:
-        raise _not_ported("spatial_sharding")
-    if pc.model_axis_size > 1:
-        raise _not_ported("a model axis > 1")
-    if pc.data_axis_size * pc.graph_axis_size <= 1:
+    d, g, m = pc.data_axis_size, pc.graph_axis_size, pc.model_axis_size
+    if d * g * m <= 1:
         return None
-    mesh = make_mesh(pc.data_axis_size, pc.graph_axis_size)
+    spatial = pc.spatial_sharding and m > 1
+    if spatial:
+        from mrp_gnn_tpu_torch.parallel.spatial import check_rows
+        check_rows(cfg.model.image_size, cfg.model.encoder_channels, m)
+    mesh = make_mesh(d, g, m, spatial=spatial)
+    shard = None
+    if m > 1:
+        from mrp_gnn_tpu_torch.parallel.spatial import SpatialSharding
+        from mrp_gnn_tpu_torch.parallel.tp import TensorParallel
+        shard = (SpatialSharding if spatial else TensorParallel)(mesh)
+    if d * g == 1:
+        # a model axis alone: the single-device edge block on every rank
+        return ParallelContext(mesh=mesh, plan=None, edge_fusion_fn=None,
+                               device=rank_device(device), shard=shard)
     dyn_caps = None
     if cfg.data.mobility > 0:
         # The capacity plan (shapes and rings) is the full-connectivity
@@ -165,4 +205,4 @@ def make_parallel_context(cfg: ExperimentConfig,
         overlap=pc.overlap_boundary_exchange, dynamic=dyn_caps is not None)
     return ParallelContext(mesh=mesh, plan=plan, edge_fusion_fn=edge_fn,
                            device=rank_device(device), dyn_caps=dyn_caps,
-                           num_replicas=pc.data_axis_size)
+                           num_replicas=pc.data_axis_size, shard=shard)

@@ -34,7 +34,11 @@ its own node block, the body of the JAX package's ``shard_fn`` on its
   aggregate ``bsp.xp_weighted_aggregate``; otherwise the plain ops. The
   remote aggregate is a plain einsum over the received rows, as in JAX;
 - ``exchange="all_gather"``: every rank gathers the whole replica's rows
-  (:class:`_AllGather`), the A/B control.
+  (:class:`_AllGather`), the A/B control;
+- the post and the wait of each exchange are profiler ranges,
+  ``halo.post:<what>`` and ``halo.wait:<what>`` ("keys" or "values"), from
+  which ``benchmark.bench_overlap`` reads the window in which the value
+  exchange is in flight.
 
 Under the gloo backend a CUDA tensor's rows are copied to pinned host
 memory, the copy is waited for, and then gloo sends them; received rows go
@@ -48,6 +52,7 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from mrp_gnn_tpu_torch.ops import bsp
 from mrp_gnn_tpu_torch.ops import reference as R
@@ -266,26 +271,33 @@ def make_partitioned_edge_fusion(mesh: Mesh, plan: EdgePartitionPlan,
             """Boundary-edge source rows in ELL form [nps, Lr, D]."""
             return x_remote[re_slot] if x_all is None else x_all[re_srcg]
 
-        def exchanged(x, before=None):
+        def exchanged(x, what, before=None):
             """(result of ``before()``, x's remote rows): the exchange is
             posted before ``before`` runs with overlap, after it without."""
             if exchange == "all_gather":
                 x_all = _AllGather.apply(x, mesh)
                 return (before() if before else None), r_gather(None, x_all)
+
+            def post():
+                with record_function(f"halo.post:{what}"):
+                    return halo.post(x, sidx)
+
             if overlap or before is None:
-                pending = halo.post(x, sidx)
+                pending = post()
                 done = before() if before else None
             else:
                 done = before()
-                pending = halo.post(x, sidx)
-            return done, r_gather(halo.receive(x, sidx, pending), None)
+                pending = post()
+            with record_function(f"halo.wait:{what}"):
+                received = halo.receive(x, sidx, pending)
+            return done, r_gather(received, None)
 
         if aggregation == "max":
             def local_max():
                 m_l = R.ell_aggregate(None, v_loc, ell_s, ell_m, "max")
                 return torch.where(ell_m.any(-1)[:, None], m_l, _NEG)
 
-            cand_l, v_edge = exchanged(v_loc, local_max)
+            cand_l, v_edge = exchanged(v_loc, "values", local_max)
             cand = torch.where(re_m[..., None], v_edge, _NEG)
             m_r = cand.amax(dim=1)                               # [nps, D]
             out = torch.maximum(cand_l.float(), m_r.float())
@@ -300,7 +312,7 @@ def make_partitioned_edge_fusion(mesh: Mesh, plan: EdgePartitionPlan,
             else:
                 lg_l = R.ell_sddmm(q, k, ell_s, ell_m) * inv_sqrt
             lg_l = torch.where(ell_m, lg_l, _NEG)                # [nps, L]
-            _, k_edge = exchanged(k)                            # [nps, Lr, dk]
+            _, k_edge = exchanged(k, "keys")                    # [nps, Lr, dk]
             lg_r = torch.einsum("vd,vjd->vj", q, k_edge) * inv_sqrt
             lg_r = torch.where(re_m, lg_r, _NEG)                 # [nps, Lr]
             mx = torch.clamp(torch.maximum(lg_l.amax(-1), lg_r.amax(-1)),
@@ -329,7 +341,7 @@ def make_partitioned_edge_fusion(mesh: Mesh, plan: EdgePartitionPlan,
                                                  sp.xp_rows, sp.xp_width)
             return R.ell_aggregate(w, v_loc, ell_s, ell_m, "sum")
 
-        local, v_edge = exchanged(v_loc, agg_local)              # [nps, Lr, D]
+        local, v_edge = exchanged(v_loc, "values", agg_local)    # [nps, Lr, D]
         remote = torch.einsum("vj,vjd->vd", (alpha_r * re_m).float(),
                               v_edge.float()).to(v_loc.dtype)
         return local + remote

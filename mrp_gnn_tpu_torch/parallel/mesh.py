@@ -1,12 +1,32 @@
-"""The ("data", "graph") mesh over ``torch.distributed`` ranks (port of
-``mrp_gnn_tpu/parallel/mesh.py``).
+"""The ("data", "graph", "model") mesh over ``torch.distributed`` ranks
+(port of ``mrp_gnn_tpu/parallel/mesh.py``).
 
-One rank holds one mesh position: rank r sits at data ``r // graph`` and
-graph ``r % graph``, the row-major order of the JAX package's
-``reshape(data, graph, model)``, so rank r owns node block r of the batch.
-The graph axis of each data replica is a process subgroup (``graph_group``),
-over which the halo exchange runs; the world group carries the sums of the
-loss, the gradients and the metrics.
+One rank holds one mesh position: rank r sits at data ``r // (graph *
+model)``, graph ``(r // model) % graph`` and model ``r % model``, the
+row-major order of the JAX package's ``reshape(data, graph, model)``, so
+rank r works on node block ``r // model`` of the batch. Its groups:
+
+- ``graph_group``: the ranks of its data replica with its model index, in
+  graph order, over which the halo exchange runs;
+- ``model_group``: the ``model`` ranks that share its node block, in model
+  order (channel gathers under tensor parallelism, halo rows and statistics
+  under spatial sharding);
+- the **batch group**, over which the batch's sums run (loss terms, metric
+  sums, gradients): the world, but under tensor parallelism the
+  ``data * graph`` ranks with its model index (``replica_group``). Each
+  rank of a model group then computes the same loss on the same node rows,
+  so a world sum would count each node block ``model`` times. Under
+  spatial sharding the model group splits a block's pixels, so the sums
+  run over the world.
+
+Sums over groups, per quantity and mode:
+
+| quantity | no model axis | tensor parallel | spatial |
+| --- | --- | --- | --- |
+| loss sums, berHu max, metric sums | world | replica group | world |
+| gradient of a replicated leaf | world | replica group | world |
+| gradient of a sharded leaf | - | replica group | - |
+| clip norm of a sharded leaf | - | model group, then as replicated | - |
 
 :class:`Mesh` also holds the collectives the port needs. Under the gloo
 backend a CUDA tensor is copied to host memory around each collective, and
@@ -18,8 +38,9 @@ vector, which keeps counts exact up to 2**53, and take one all-reduce.
 Axes:
   data  — scene-batch shards (data parallelism: gradients summed);
   graph — edge partitions of one replica's robot graph (parallel/fused.py);
-  model — channel or spatial sharding: not ported yet (ROADMAP.md, queue A
-          item 11), :func:`make_mesh` refuses a model axis > 1.
+  model — output-channel shards of the parameters (parallel/tp.py), or
+          with ``spatial`` image-row shards of every feature map
+          (parallel/spatial.py).
 """
 
 from __future__ import annotations
@@ -32,34 +53,52 @@ import torch.distributed as dist
 from mrp_gnn_tpu_torch.parallel.launch import world
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port has the data and graph axes; "
-        "the model axis (parallel/tp.py, spatial_sharding) is still queued "
-        "(ROADMAP.md, queue A item 11)")
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """This rank's place in a (data, graph) mesh of ``data * graph`` ranks."""
+    """This rank's place in a (data, graph, model) mesh of ``data * graph *
+    model`` ranks."""
     data: int
     graph: int
     rank: int
     backend: str
     graph_group: object          # ProcessGroup of this replica's graph axis
     graph_ranks: tuple           # its global ranks, in graph order
+    model: int = 1
+    spatial: bool = False        # the model axis shards image rows
+    model_group: object = None   # ProcessGroup of this node block's ranks
+    replica_group: object = None  # the data * graph ranks of this model index
 
     @property
     def size(self) -> int:
+        return self.data * self.graph * self.model
+
+    @property
+    def blocks(self) -> int:
+        """Node blocks of a batch: one per (data, graph) position."""
         return self.data * self.graph
 
     @property
+    def block(self) -> int:
+        return self.rank // self.model
+
+    @property
     def data_index(self) -> int:
-        return self.rank // self.graph
+        return self.block // self.graph
 
     @property
     def graph_index(self) -> int:
-        return self.rank % self.graph
+        return self.block % self.graph
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def batch_group(self):
+        """The group of the batch's sums (module docstring): the replica
+        group under tensor parallelism, else the world (None)."""
+        return (self.replica_group if self.model > 1 and not self.spatial
+                else None)
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
         """A copy of ``t`` where the backend can read it (in host memory
@@ -78,15 +117,22 @@ class Mesh:
         return [p.to(t.device) for p in parts]
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of ``t`` over the world, one all-reduce (the same bits on
-        every rank), on ``t``'s device; not differentiable."""
+        """Sum of ``t`` over the batch group, one all-reduce (the same bits
+        on every rank), on ``t``'s device; not differentiable."""
+        return self._all_reduce(t, self.batch_group)
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the model group; not differentiable."""
+        return self._all_reduce(t, self.model_group)
+
+    def _all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
         buf = self._staged(t)
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         return buf.to(t.device)
 
     def sum_all(self, tensors) -> list:
-        """Each of ``tensors`` (one device) summed over the world, packed
-        into one all-reduce; each in its own dtype and shape; not
+        """Each of ``tensors`` (one device) summed over the batch group,
+        packed into one all-reduce; each in its own dtype and shape; not
         differentiable."""
         return _unpack(self.sum(_pack(tensors)), tensors)
 
@@ -97,10 +143,10 @@ class Mesh:
         return _unpack(_WorldSum.apply(_pack(tensors), self), tensors)
 
     def world_max(self, t: torch.Tensor) -> torch.Tensor:
-        """Max of a scalar over the world. Each rank's gradient of the max
-        is its own pixels' share, so the backward sums the shares over the
-        world and gives the sum to the ranks that hold the max, split evenly
-        among them as ``torch.amax`` splits it among tied elements."""
+        """Max of a scalar over the batch group. Each rank's gradient of the
+        max is its own pixels' share, so the backward sums the shares over
+        the group and gives the sum to the ranks that hold the max, split
+        evenly among them as ``torch.amax`` splits it among tied elements."""
         return _WorldMax.apply(t, self)
 
     def broadcast_(self, tensors, src: int = 0) -> None:
@@ -143,7 +189,8 @@ class _WorldSum(torch.autograd.Function):
 class _WorldMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh):
-        parts = torch.stack(mesh.all_gather(t.reshape(1)))
+        parts = torch.stack(mesh.all_gather(t.reshape(1),
+                                            group=mesh.batch_group))
         top = parts.max()
         ctx.mesh = mesh
         ctx.save_for_backward((t == top).to(t.dtype) / (parts == top).sum())
@@ -156,29 +203,42 @@ class _WorldMax(torch.autograd.Function):
 
 
 def make_mesh(data_axis_size: int = 1, graph_axis_size: int = 1,
-              model_axis_size: int = 1) -> Mesh:
+              model_axis_size: int = 1, spatial: bool = False) -> Mesh:
     """This rank's :class:`Mesh` over the current process group (a world of
     one rank without one). Every rank must call it, in the same order: it
-    creates one graph subgroup per data replica. Raises ValueError when the
-    mesh needs more ranks than the world has, or fewer (one rank per mesh
-    position), and NotImplementedError for a model axis > 1."""
-    if model_axis_size > 1:
-        raise _not_ported("a model axis > 1")
+    creates every rank's graph, model and replica subgroups. ``spatial``:
+    the model axis shards image rows (parameters replicated). Raises
+    ValueError when the mesh needs more ranks than the world has, or fewer
+    (one rank per mesh position)."""
+    d, g, m = data_axis_size, graph_axis_size, model_axis_size
     rank, size = world()
-    need = data_axis_size * graph_axis_size
+    need = d * g * m
     if need > size:
         raise ValueError(f"mesh needs {need} ranks, have {size}")
     if need < size:
         raise ValueError(f"mesh of {need} ranks in a world of {size}: the "
                          "port runs one rank per mesh position")
     groups = {}
+
+    def new(ranks):
+        groups[ranks] = dist.new_group(list(ranks))
+
     if size > 1:
-        for d in range(data_axis_size):
-            ranks = tuple(range(d * graph_axis_size,
-                                (d + 1) * graph_axis_size))
-            groups[ranks] = dist.new_group(list(ranks))
-    lo = (rank // graph_axis_size) * graph_axis_size
-    mine = tuple(range(lo, lo + graph_axis_size))
-    return Mesh(data=data_axis_size, graph=graph_axis_size, rank=rank,
+        for di in range(d):
+            for mi in range(m):
+                new(tuple((di * g + gi) * m + mi for gi in range(g)))
+        if m > 1:
+            for b in range(d * g):
+                new(tuple(b * m + mi for mi in range(m)))
+            for mi in range(m):
+                new(tuple(b * m + mi for b in range(d * g)))
+    block, mi = rank // m, rank % m
+    graph_ranks = tuple((block // g * g + gi) * m + mi for gi in range(g))
+    return Mesh(data=d, graph=g, rank=rank,
                 backend=dist.get_backend() if size > 1 else "none",
-                graph_group=groups.get(mine), graph_ranks=mine)
+                graph_group=groups.get(graph_ranks), graph_ranks=graph_ranks,
+                model=m, spatial=spatial and m > 1,
+                model_group=groups.get(tuple(block * m + i
+                                             for i in range(m))),
+                replica_group=groups.get(tuple(b * m + mi
+                                               for b in range(d * g))))

@@ -24,13 +24,19 @@ loop copies the group. The data stream is the builtin pipeline or, with
 ``loader="grain"``, the multi-worker loader, whose position is saved with
 each checkpoint (``data_state``).
 
-Under a ("data", "graph") mesh (``ParallelConfig.data_axis_size`` x
-``graph_axis_size`` ranks, one process each, ``parallel/``), each rank
-renders and trains its own node rows through the partitioned fusion; the
-loss terms are global sums (``losses.py``), the gradients are summed over
-the world after the backward, and every rank runs the same clip and AdamW
-update. Rank 0 alone logs, writes TensorBoard and checkpoints; every rank
-restores from the same checkpoint.
+Under a ("data", "graph", "model") mesh (``ParallelConfig``'s
+``data_axis_size`` x ``graph_axis_size`` x ``model_axis_size`` ranks, one
+process each, ``parallel/``), each rank renders and trains its node block's
+rows through the partitioned fusion; with a model axis, under tensor
+parallelism its shard of the parameters' output channels
+(``parallel/tp.py``), under ``spatial_sharding`` its image rows of them
+(``parallel/spatial.py``). The loss terms are global sums (``losses.py``),
+the gradients are summed after the backward over the batch group
+(``parallel/mesh.py``: the world, or under tensor parallelism the ranks of
+this rank's model index), and every rank runs the same clip and AdamW
+update on what it holds. Rank 0 alone logs, writes TensorBoard and
+checkpoints (whole tensors: a tensor-parallel run gathers its shards
+first); every rank restores from the same checkpoint.
 
 CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20 \
         [--checkpoint_dir /tmp/ckpt] [--eval_every 10] [--max_restarts 2] \
@@ -38,11 +44,12 @@ CLI: python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --steps 20 \
      python -m mrp_gnn_tpu_torch.train --config swarm_partitioned \
         --coordinator localhost:29500 --num_processes 8 --process_id $ID \
         --dist_backend gloo     # one process per rank
+     python -m mrp_gnn_tpu_torch.train --config dynamic_swarm --model_axis 2 \
+        --coordinator localhost:29500 --num_processes 2 --process_id $ID \
+        --dist_backend gloo     # tensor parallelism over 2 ranks
 
 The loop runs on the CUDA card unless the caller asks for the CPU
-(``device="cpu"``, ``--device cpu``). Not ported yet, raising
-NotImplementedError that names its ROADMAP.md item: a model axis > 1 and
-``spatial_sharding`` (queue A item 11).
+(``device="cpu"``, ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -108,11 +115,13 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads) -> torch.Tensor:
+    def step(self, grads, norm: torch.Tensor | None = None) -> torch.Tensor:
         """Apply one update from ``grads`` (one per parameter, in order);
-        returns the global norm of the gradients before clipping."""
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        returns the global norm of the gradients before clipping, which a
+        caller whose parameters are shards passes as ``norm``."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         clip = norm < self.max_norm
         lr = self.schedule(self.count)
         self.count += 1
@@ -156,30 +165,22 @@ def create_train_state(cfg: ExperimentConfig, device,
     return TrainState(model, make_optimizer(cfg, model.parameters()))
 
 
-def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
-                    optimizer: AdamW, mesh=None) -> Callable:
-    """``step(state, images, depth, seg, graph) -> (state, terms)``.
-
-    With ``grad_accum_steps`` > 1, images/depth/seg carry a leading
-    [accum] microbatch axis and ``graph`` is one GraphBatch (static
-    topology) or a sequence of one per microbatch (dynamic topology); the
-    gradients and terms are averaged over the microbatches before one
-    update. ``terms`` are device tensors: the loss terms, and ``grad_norm``
-    before clipping. The step does not synchronise with the device.
-
-    ``mesh`` (a ``parallel.mesh.Mesh``): the batch is this rank's node rows;
-    the loss terms are global (``losses.total_loss``), and after the
-    backward the gradients are summed over the world (no DDP: its all-reduce
-    averages, and would run beside the halo exchange's own collectives in
-    the backward), so every rank applies the same update.
-    """
+def make_grad_fn(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
+                 pctx=None) -> Callable:
+    """``grads(images, depth, seg, graph) -> (grads, terms)``: the loss
+    terms and the gradients of one batch (microbatches, as
+    :func:`make_train_step` takes them, averaged), one per parameter, summed
+    over the mesh's batch group after the backward (``pctx``: this rank's
+    ``parallel.context.ParallelContext``)."""
     accum = max(cfg.train.grad_accum_steps, 1)
     tr = cfg.train
     ops_impl = cfg.parallel.ops_impl
     params = list(model.parameters())
+    mesh = pctx.mesh if pctx is not None else None
+    shard = pctx.shard if pctx is not None else None
 
     def forward(images, graph):
-        return model(images, graph, ops_impl=ops_impl)
+        return model(images, graph, ops_impl=ops_impl, shard=shard)
 
     def grads_of(images, depth, seg, graph):
         if tr.remat:
@@ -195,8 +196,7 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
         grads = torch.autograd.grad(loss, params)
         return grads, {k: v.detach() for k, v in terms.items()}
 
-    def train_step(state: TrainState, images, depth, seg, graph):
-        model.train()
+    def grads(images, depth, seg, graph):
         if accum == 1:
             grads, terms = grads_of(images, depth, seg, graph)
         else:
@@ -213,49 +213,90 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
             flat = mesh.sum(torch.cat([g.reshape(-1) for g in grads]))
             grads = [f.view_as(g) for f, g in
                      zip(flat.split([g.numel() for g in grads]), grads)]
-        terms["grad_norm"] = optimizer.step(grads)
+        return grads, terms
+
+    return grads
+
+
+def global_norm(grads, params, mesh=None) -> torch.Tensor:
+    """The norm of the whole gradient, as one process computes it: each
+    leaf's norm, then the norm of those; a sharded leaf's square summed
+    over the model group first (one all-reduce for them all)."""
+    from mrp_gnn_tpu_torch.parallel.tp import is_sharded
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    sharded = [i for i, p in enumerate(params) if is_sharded(p)]
+    if mesh is not None and sharded:
+        sq = mesh.model_sum(torch.stack([norms[i] ** 2 for i in sharded]))
+        for i, s in zip(sharded, torch.sqrt(sq)):
+            norms[i] = s
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
+                    optimizer: AdamW, pctx=None) -> Callable:
+    """``step(state, images, depth, seg, graph) -> (state, terms)``.
+
+    With ``grad_accum_steps`` > 1, images/depth/seg carry a leading
+    [accum] microbatch axis and ``graph`` is one GraphBatch (static
+    topology) or a sequence of one per microbatch (dynamic topology); the
+    gradients and terms are averaged over the microbatches before one
+    update. ``terms`` are device tensors: the loss terms, and ``grad_norm``
+    before clipping. The step does not synchronise with the device.
+
+    ``pctx`` (a ``parallel.context.ParallelContext``): the batch is this
+    rank's node rows (under spatial sharding its image rows of them), the
+    model runs with ``pctx.shard``, the loss terms are global
+    (``losses.total_loss``), and after the backward the gradients are
+    summed over the batch group (no DDP: its all-reduce averages, and would
+    run beside the halo exchange's own collectives in the backward), so
+    every rank applies the same update to what it holds; the clip norm is
+    the whole gradient's (:func:`global_norm`).
+    """
+    grad_fn = make_grad_fn(cfg, model, pctx)
+    params = list(model.parameters())
+    mesh = pctx.mesh if pctx is not None else None
+
+    def train_step(state: TrainState, images, depth, seg, graph):
+        model.train()
+        grads, terms = grad_fn(images, depth, seg, graph)
+        terms["grad_norm"] = (
+            optimizer.step(grads) if mesh is None
+            else optimizer.step(grads, global_norm(grads, params, mesh)))
         state.step += 1
         return state, terms
 
     return train_step
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    from mrp_gnn_tpu_torch.parallel.mesh import _not_ported
-    pc = cfg.parallel
-    if pc.model_axis_size > 1:
-        raise _not_ported("a model axis > 1")
-    if pc.spatial_sharding:
-        raise _not_ported("spatial_sharding")
-
-
 def make_parallel(cfg: ExperimentConfig, device=None):
     """This rank's ``ParallelContext`` for cfg, or None for a trivial mesh.
 
     A mesh larger than the world (``torch.distributed``'s ranks; one without
-    a process group) shrinks, graph axis first, then data, until it fits,
-    with a printed line, as the JAX package shrinks it to its devices.
-    ``device``: this rank's device (default ``parallel.launch.rank_device``).
+    a process group) shrinks, graph axis first, then model, then data, until
+    it fits, with a printed line, as the JAX package shrinks it to its
+    devices. ``device``: this rank's device (default
+    ``parallel.launch.rank_device``).
     """
     from mrp_gnn_tpu_torch.parallel.context import make_parallel_context
     from mrp_gnn_tpu_torch.parallel.launch import world
-    _check_ported(cfg)
     pc = cfg.parallel
-    d, g = pc.data_axis_size, pc.graph_axis_size
-    if d * g <= 1:
+    d, g, m = pc.data_axis_size, pc.graph_axis_size, pc.model_axis_size
+    if d * g * m <= 1:
         return None
     size = world()[1]
-    if d * g > size:
-        while d * g > size:
+    if d * g * m > size:
+        while d * g * m > size:
             if g > 1:
                 g = max(g // 2, 1)
+            elif m > 1:
+                m = max(m // 2, 1)
             else:
                 d = max(d // 2, 1)
         print(f"[train] mesh {pc.data_axis_size}x{pc.graph_axis_size}"
               f"x{pc.model_axis_size} needs more than {size} rank(s); "
-              f"clamped to {d}x{g}x{pc.model_axis_size}", flush=True)
+              f"clamped to {d}x{g}x{m}", flush=True)
         cfg = cfg.replace(parallel=dataclasses.replace(
-            pc, data_axis_size=d, graph_axis_size=g))
+            pc, data_axis_size=d, graph_axis_size=g, model_axis_size=m))
     return make_parallel_context(cfg, device)
 
 
@@ -431,8 +472,9 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
     device is this rank's (``device`` None: ``parallel.launch.rank_device``),
     the builtin stream renders this rank's node rows, and the records are
     the same on every rank; only rank 0 calls ``log_fn``, writes TensorBoard
-    and saves checkpoints. A caller's ``data_iter`` yields whole batches,
-    of which each rank takes its rows.
+    and saves checkpoints (of whole tensors). A caller's ``data_iter``
+    yields whole batches, of which each rank takes its rows. The returned
+    state's model holds this rank's shards under tensor parallelism.
     """
     pctx = make_parallel(cfg, device)
     device = pctx.device if pctx is not None else resolve_device(device)
@@ -484,8 +526,7 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 for k, v in scalars.items():
                     tb.add_scalar(k, v, step)
 
-        step_fn = make_train_step(cfg, state.model, state.optimizer,
-                                  mesh=pctx.mesh if pctx else None)
+        step_fn = make_train_step(cfg, state.model, state.optimizer, pctx)
         if start_step < steps:
             batch = next(it)
             n_nodes, n_edges = _counts(batch["graph"], accum)
@@ -519,9 +560,12 @@ def train(cfg: ExperimentConfig, num_steps: int | None = None,
                 if "rmse" in ev and ev["rmse"] < best_rmse:
                     best_rmse, best_step = ev["rmse"], i + 1
                     state.best_rmse, state.best_step = best_rmse, best_step
-            if ckpt_mgr and lead and ((i + 1) % tr.checkpoint_every == 0
-                                      or i == steps - 1):
-                ckpt_mgr.save(i + 1, state, data_state=it.get_state())
+            if ckpt_mgr and ((i + 1) % tr.checkpoint_every == 0
+                             or i == steps - 1):
+                whole = pctx.full_tensors(state) if pctx else None
+                if lead:
+                    ckpt_mgr.save(i + 1, state, data_state=it.get_state(),
+                                  tensors=whole)
             if i + 1 < steps:
                 batch = next(it)
         if best_step >= 0:
@@ -559,12 +603,14 @@ def init_multihost(args) -> None:
 
 
 def add_axis_args(p: argparse.ArgumentParser) -> None:
-    """Overrides of ParallelConfig's data and graph axes, as the JAX CLI
-    has them (its --model_axis has no ported counterpart)."""
+    """Overrides of ParallelConfig's mesh axes, as the JAX CLI has them
+    (``spatial_sharding`` comes from the config, as there)."""
     p.add_argument("--data_axis", type=int, default=None,
                    help="override ParallelConfig.data_axis_size")
     p.add_argument("--graph_axis", type=int, default=None,
                    help="override ParallelConfig.graph_axis_size")
+    p.add_argument("--model_axis", type=int, default=None,
+                   help="override ParallelConfig.model_axis_size")
     p.add_argument("--expanded_plan_pairs", type=int, default=None,
                    help="override ParallelConfig.expanded_plan_pairs (the "
                         "per-shard row-expanded plan opt-in for dynamic "
@@ -574,6 +620,7 @@ def add_axis_args(p: argparse.ArgumentParser) -> None:
 def apply_axis_args(cfg: ExperimentConfig, args) -> ExperimentConfig:
     kw = {f: v for f, v in (("data_axis_size", args.data_axis),
                             ("graph_axis_size", args.graph_axis),
+                            ("model_axis_size", args.model_axis),
                             ("expanded_plan_pairs", args.expanded_plan_pairs))
           if v is not None}
     return cfg.replace(parallel=dataclasses.replace(cfg.parallel, **kw))

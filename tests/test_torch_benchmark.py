@@ -46,8 +46,12 @@ def test_main_runs_every_single_device_bench(capsys):
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert lines == recs
     by = {b: [r for r in recs if r["bench"] == b]
-          for b in ("fusion", "train_step", "train_edge", "mfu")}
+          for b in ("fusion", "train_step", "train_edge", "mfu", "scaling",
+                    "overlap", "overlap_summary")}
     assert len(recs) == sum(map(len, by.values()))
+    # "all" also runs the multi-device benches, in a world of one rank
+    assert [len(by[b]) for b in ("scaling", "overlap",
+                                 "overlap_summary")] == [1, 2, 1]
     _check_edge(by["fusion"], "fusion", ("xla_scatter", "xla_ell",
                                          "pallas_ell", "xla_block",
                                          "pallas_block"))
@@ -98,5 +102,15 @@ def test_encoder_flops_equal_an_analytic_count():
 
 @pytest.mark.parametrize("what", ["scaling", "overlap"])
 def test_multi_device_benches_wait_for_parallelism(what):
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        TB.main(["--what", what, "--device", "cpu"])
+    """Without a process group the multi-device benches run in a world of
+    one rank: scaling gives its P = 1 record, overlap its two turns and
+    the summary (over ranks: ``tests/test_torch_tp.py``)."""
+    recs = TB.main(["--what", what, "--device", "cpu", "--inner", "2"])
+    if what == "scaling":
+        assert [r["devices"] for r in recs] == [1]
+        assert {"edges", "edges_per_s", "efficiency", "topology",
+                "exchange", "backend"} <= set(recs[0])
+    else:
+        assert [r["bench"] for r in recs] == ["overlap", "overlap",
+                                              "overlap_summary"]
+        assert recs[0]["n_exchanges"] == 2

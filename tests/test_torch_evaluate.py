@@ -17,7 +17,6 @@
   on-disk dataset.
 """
 
-import dataclasses
 import json
 import os
 
@@ -81,18 +80,6 @@ def test_eval_partial_batch_invariance():
     assert (ra["eval_batches"], rb["eval_batches"]) == (2, 3)
     for k in ("rmse", "abs_rel", "delta1"):
         np.testing.assert_allclose(ra[k], rb[k], rtol=REL, err_msg=k)
-
-
-def test_evaluate_refuses_a_parallel_context():
-    """evaluate() takes the data x graph context (A11's first half); the
-    context of a model axis (its second half) is refused, before the mesh
-    would be shrunk to the world."""
-    cfg = small(get_config("dynamic_swarm"))
-    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
-                                                   model_axis_size=2))
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        TE.evaluate(cfg, TT.create_train_state(cfg, "cpu").model,
-                    pctx=TT.make_parallel(cfg, "cpu"))
 
 
 def _panel_inputs():

@@ -311,8 +311,8 @@ def test_loss_terms_take_one_all_reduce(monkeypatch, depth_loss):
 def test_mesh_needs_enough_ranks():
     with pytest.raises(ValueError, match="needs 2 ranks"):
         TM.make_mesh(2, 1)  # no process group: a world of one rank
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        TM.make_mesh(1, 1, 2)
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        TM.make_mesh(1, 2, 2)
 
 
 def test_nccl_refuses_ranks_that_share_a_card(monkeypatch):

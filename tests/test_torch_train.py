@@ -220,26 +220,18 @@ def test_train_loop_halts_on_a_nonfinite_loss():
         TT.train(tcfg, num_steps=2, data_iter=iter([bad, bad]), device="cpu")
 
 
-@pytest.mark.parametrize("change", [
-    dict(parallel=dict(model_axis_size=2)), dict(data=dict(loader="grain")),
-    dict(parallel=dict(spatial_sharding=True))],
-    ids=["mesh", "grain", "spatial"])
+@pytest.mark.parametrize("change", [dict(data=dict(loader="grain"))],
+                         ids=["grain"])
 def test_train_refuses_what_is_not_ported(change, monkeypatch):
-    """The data and graph axes are ported; a model axis > 1 and spatial
-    sharding are not (A11's second half), refused before the mesh would be
-    shrunk to the world. The worker loader refuses a process group of more
-    than one process, as the JAX package refuses more than one process."""
+    """The worker loader refuses a process group of more than one process,
+    as the JAX package refuses more than one process."""
     cfg = get_config("dynamic_swarm")
     for part, kw in change.items():
         cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part),
                                                        **kw)})
-    if "data" in change:
-        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(ValueError, match="single-process only"):
-            TT.train(cfg, num_steps=1, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(ValueError, match="single-process only"):
         TT.train(cfg, num_steps=1, device="cpu")
 
 
