@@ -61,10 +61,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradients of its Function and of the two-kernel attention; the dual
    transposed SpMM bit for bit against two single launches at the
    attention backward's shapes and on the hideg path's node view; both
-   forms of the SDDMM and the transposed SpMM (per-edge and tiled, each
-   forced) at the hideg node view, on the crafted graphs of degree 100 and
-   200 and at the swarm's training batch, f32, bf16 and mixed operands,
-   single = dual and reruns bit for bit; both forms of the fused forward
+   forms of the SDDMM and the three of the transposed SpMM (per-edge, tiled
+   and staged, ``bsp.SPMM_T_FORMS``, each forced, and the wrappers through
+   their rules) at the hideg node view, on the crafted graphs of degree 100
+   and 200 (V 32 and 128: not multiples of the 64-node tile), on
+   rectangular lists (100 rows over 200 and 50 sources) and at the swarm's
+   training batch (dvalues at D 8192, dk at 64), f32, bf16 and mixed
+   operands, single = dual and reruns bit for bit, the staged transposed
+   SpMM bit for bit the per-edge one; both forms of the fused forward
    (``bsp.FUSED_FORMS``, each forced) on the swarm batch and the crafted
    graph, reruns bit for bit and the wrapper bit for bit against its
    rule's form; both forms of the SpMM (``bsp.SPMM_FORMS``, each forced)
@@ -84,8 +88,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the same Predictor with the plain ops;
 5. training: for each path, three steps of ``train.make_train_step`` on the
    first three train batches, checked for finite losses and grad norms, for
-   the launches of every kernel per step, and against the same three steps
-   with the plain ops on the card;
+   the launches of every kernel per step, for no ``bsp.source_view`` call
+   (every path's transposed SpMM takes the staged or the tiled form), and
+   against the same three steps with the plain ops on the card;
 6. timings (medians): each kernel beside its bound, its plain version and
    a library yardstick (and, for the weights and the ELL softmax, a floor:
    one PyTorch call with the kernel's chain of dependent round trips);
@@ -97,7 +102,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    dual transposed SpMM against two single launches, in turns; the dual
    SDDMM at the hideg node view; both forms of the dual SDDMM and the dual
    transposed SpMM in turns at the swarm, hideg and fully connected teams
-   of 9 to 129 robots (the form rule's crossover); both forms of the fused
+   of 9 to 129 robots (the form rule's crossover; the transposed SpMM's
+   three forms); the transposed SpMM's forms in turns at the attention
+   path's dual launch and the bsp2 path's single ones, with the per-edge
+   form's view inside and outside the clock and ``torch.sparse.mm`` beside
+   them, and the staged form against the per-edge one on teams of 8 robots
+   at V 1,024 to 8,192 (``spmm_t_form_ab``, the rule's STAGED_MAX_NODES;
+   form_ab's fully connected teams give its STAGED_MAX_DEG);
+   both forms of the fused
    forward in turns at the attention batch (``fused_form_ab``, f32 and
    bf16) and both forms of the single SDDMM at the ell path's logits
    (``sddmm_ab``); both forms of the SpMM in turns at the ell path's
@@ -148,7 +160,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (4 scenes x 64 robots in radius 4, 256 nodes over a graph axis of 8):
    8 ranks of this script (``--parallel-rank``), all on the one card and
    joined by gloo (``--dist_backend gloo``: rows staged through pinned host
-   memory), each with its own node block, plan block and kernels. Held: the
+   memory), each with its own node block, plan block and kernels (the
+   transposed SpMM in its staged form, no source view in the train
+   steps). Held: the
    world of 8 on a graph axis of 8 with real boundary rows; every call of
    rows 3, 4 and 5 (``bsp.spmm``, ``bsp.sddmm``, ``bsp.spmm_t``) that the
    partitioned fusion makes on a rank's shard within 1e-5 of its plain
@@ -184,7 +198,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``train.train`` for 4 steps with launch counts reset just before it and
    read just after (rows 1, 3, 4/7 and 6 once a step under tensor
    parallelism, 3, 4 and 5 under spatial sharding, on every rank, no
-   other kernel); the replicated parameters bit for bit equal across
+   other kernel; no source view, the transposed SpMM staged); the
+   replicated parameters bit for bit equal across
    ranks; the resume from step 2 bit for bit; two updates from the seeded
    state (lr 0, then above 0) against one process's (the first step's
    terms within 1e-5 relative; each leaf of its gradients and of the
@@ -260,6 +275,7 @@ PORT_KERNEL_BODIES = ("fused_attention_kernel", "fused_vec_kernel",
                       "block_attention_kernel", "tile_flags_kernel",
                       "sddmm_tiled_kernel", "sddmm_finish_kernel",
                       "densify_kernel", "spmm_t_tiled_kernel",
+                      "spmm_t_staged_kernel",
                       "fused_parts_weights_kernel", "fused_parts_tiled_kernel",
                       "block_attention_f32_kernel",
                       "block_attention_bf16_kernel", "spmm_vec_kernel",
@@ -694,6 +710,25 @@ class _Uncounted:
 
 
 FORMS = ((False, "per-edge"), (True, "tiled"))
+
+
+@contextlib.contextmanager
+def counted_views():
+    """While open, counts the calls of bsp.source_view (the per-edge
+    transposed SpMM's device sort, which the staged and tiled forms do not
+    build); yields a one-element list of the count."""
+    real = bsp.source_view
+    calls = [0]
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    bsp.source_view = counting
+    try:
+        yield calls
+    finally:
+        bsp.source_view = real
 
 
 def forward_form(tiled: bool, *args):
@@ -1264,12 +1299,11 @@ def check_weights(x: dict, tag: str) -> tuple:
 def backward_view(x: dict) -> dict:
     """The transposed SpMMs' operands of the attention backward on
     ``x["graph"]``'s ELL lists (on the hideg graph, the node view that its
-    backward passes), with a source view for the per-edge form."""
+    backward passes)."""
     g = x["graph"]
-    src, mask = g.ell_src, g.ell_mask
-    return {"src": src, "mask": mask, "q_s": x["q_s"], "ct": x["ct"],
-            "alpha": x["alpha"], "dlog": x["dlog"], "V": g.max_nodes,
-            "view": bsp.source_view(src, mask, g.max_nodes)}
+    return {"src": g.ell_src, "mask": g.ell_mask, "q_s": x["q_s"],
+            "ct": x["ct"], "alpha": x["alpha"], "dlog": x["dlog"],
+            "V": g.max_nodes}
 
 
 def check_spmm_t2(x: dict, tag: str) -> float:
@@ -1279,15 +1313,14 @@ def check_spmm_t2(x: dict, tag: str) -> float:
     its plain version, with f32 and bf16 values. Returns the f32 max abs
     err."""
     b = backward_view(x)
-    src, mask, V, view = b["src"], b["mask"], b["V"], b["view"]
+    src, mask, V = b["src"], b["mask"], b["V"]
     err = 0.0
     for vdt in (torch.float32, torch.bfloat16):
         ct = b["ct"].to(vdt)
         dv, dk = bsp.spmm_t2(b["alpha"], ct, b["dlog"], b["q_s"], src, mask,
-                             V, vdt, torch.float32, view)
-        one = bsp.spmm_t(b["alpha"], ct, src, mask, V, vdt, view)
-        two = bsp.spmm_t(b["dlog"], b["q_s"], src, mask, V, torch.float32,
-                         view)
+                             V, vdt, torch.float32)
+        one = bsp.spmm_t(b["alpha"], ct, src, mask, V, vdt)
+        two = bsp.spmm_t(b["dlog"], b["q_s"], src, mask, V, torch.float32)
         torch.cuda.synchronize()
         name = f"{tag}, values {vdt}"
         if not (torch.equal(dv, one) and torch.equal(dk, two)):
@@ -1353,90 +1386,183 @@ def sddmm_form(tiled: bool, *args):
     return bsp.run_sddmm(_Uncounted, *args, tiled=tiled)
 
 
-def spmm_t_form(tiled: bool, pairs, src, mask, Vs: int):
-    """bsp_spmm_t.cu in the form given, over (w, x, out dtype) pairs."""
-    return bsp._run_spmm_t(_Uncounted, pairs, src, mask, Vs, None,
-                           tiled=tiled)
+def spmm_t_form(form: str, pairs, src, mask, Vs: int, view=None):
+    """bsp_spmm_t.cu in the form given (a name of bsp.SPMM_T_FORMS), over
+    (w, x, out dtype) pairs; the per-edge form over ``view``, or over a
+    view it builds."""
+    return bsp._run_spmm_t(_Uncounted, pairs, src, mask, Vs, view, form=form)
 
 
 def rule_form(g) -> str:
-    """The form bsp.tiled_form gives graph ``g``'s ELL lists."""
+    """The form bsp.tiled_form gives graph ``g``'s ELL lists (the SDDMM's
+    rule)."""
     V, deg = g.ell_src.shape
     return "tiled" if bsp.tiled_form(V, g.max_nodes, deg) else "per-edge"
 
 
+def spmm_t_rule(src, mask, Vs: int) -> str:
+    """The form bsp.spmm_t_form gives a transposed SpMM over ``src`` /
+    ``mask`` into Vs rows."""
+    V, deg = src.shape
+    return bsp.SPMM_T_FORMS[bsp.spmm_t_form(V, Vs, deg,
+                                            bsp._aligned16(src, mask))]
+
+
+# The widest ELL lists whose windows fit the staged form's shared memory
+# with f32 x (csrc/bsp_spmm_t.cu staged_smem_bytes, 227 KB a block).
+STAGED_WIDEST = 280
+
+
+def spmm_t_forms(deg: int) -> tuple:
+    """The forms of bsp_spmm_t.cu that take ELL width ``deg``."""
+    return tuple(f for f in bsp.SPMM_T_FORMS
+                 if f != "staged" or deg <= STAGED_WIDEST)
+
+
+def check_spmm_t_forms(pairs, src, mask, Vs: int, name: str,
+                       errs: dict | None = None) -> dict:
+    """Each form of the transposed SpMM that takes the width (forced), over
+    the dual pairs ``pairs`` (w, x, out dtype) into Vs rows, against the
+    plain version: a single launch of the first pair twice (bit for bit)
+    and of the second, the dual bit for bit against the singles, unnamed
+    sources 0; the staged form bit for bit against the per-edge form; the
+    wrappers (``bsp.spmm_t2``, ``bsp.spmm_t``) bit for bit against the
+    form of the rule. Returns each form's dual outputs."""
+    (w1, x1, o1), (w2, x2, o2) = pairs
+    want1 = bsp.spmm_t_reference(w1, x1, src, mask, Vs, o1)
+    want2 = bsp.spmm_t_reference(w2, x2, src, mask, Vs, o2)
+    named = torch.zeros(Vs, dtype=torch.bool, device=src.device)
+    named[src[mask].long()] = True
+    got = {}
+    for form in spmm_t_forms(src.shape[1]):
+        dv, dk = spmm_t_form(form, pairs, src, mask, Vs)
+        one = spmm_t_form(form, pairs[:1], src, mask, Vs)[0]
+        again = spmm_t_form(form, pairs[:1], src, mask, Vs)[0]
+        two = spmm_t_form(form, pairs[1:], src, mask, Vs)[0]
+        torch.cuda.synchronize()
+        tag = f"{form}, {name}"
+        e1 = check_kernel_vs_plain(f"bsp_spmm_t2 first, {tag}", dv, want1,
+                                   o1 == torch.bfloat16)
+        e2 = check_kernel_vs_plain(f"bsp_spmm_t2 second, {tag}", dk, want2,
+                                   o2 == torch.bfloat16)
+        if not (torch.equal(one, again) and torch.equal(dv, one)
+                and torch.equal(dk, two)):
+            raise AssertionError(f"bsp_spmm_t, {tag}: two runs differ, or "
+                                 "the dual is not bit-equal to two single "
+                                 "launches")
+        if not (bool((dv[~named] == 0).all())
+                and bool((dk[~named] == 0).all())):
+            raise AssertionError(f"bsp_spmm_t, {tag}: unnamed sources must "
+                                 "give 0")
+        if errs is not None and x1.dtype == o1 == torch.float32:
+            errs[form] = max(errs.get(form, 0.0), e1, e2)
+        got[form] = (dv, dk)
+    if "staged" in got and not all(
+            torch.equal(a, b) for a, b in zip(got["staged"], got["per-edge"])):
+        raise AssertionError(f"bsp_spmm_t, {name}: the staged form is not "
+                             "bit for bit the per-edge form")
+    rule = spmm_t_rule(src, mask, Vs)
+    dual = bsp.spmm_t2(w1, x1, w2, x2, src, mask, Vs, o1, o2)
+    single = bsp.spmm_t(w1, x1, src, mask, Vs, o1)
+    if not (torch.equal(dual[0], got[rule][0]) and torch.equal(
+            dual[1], got[rule][1]) and torch.equal(single, got[rule][0])):
+        raise AssertionError(f"bsp_spmm_t, {name}: the wrappers do not give "
+                             f"the bits of their rule's {rule} form")
+    return got
+
+
 def check_forms(x: dict, tag: str, errs: dict | None = None) -> None:
-    """Both forms of the SDDMM and the transposed SpMM, each forced, against
-    their plain versions on the operands of ``backward_inputs`` (f32, bf16
-    and mixed operands): the dual SDDMM and a single launch of each of its
-    pairs, bit for bit against the dual's outputs, the second single
-    twice (bit for bit); the dual transposed SpMM, a single
-    one twice (bit for bit) and a second single one, the dual bit for bit
-    against the singles."""
+    """Both forms of the SDDMM and every form of the transposed SpMM, each
+    forced, against their plain versions on the operands of
+    ``backward_inputs`` (f32, bf16 and mixed operands): the dual SDDMM and a
+    single launch of each of its pairs, bit for bit against the dual's
+    outputs, the second single twice (bit for bit); the transposed SpMM as
+    :func:`check_spmm_t_forms` holds it, at dvalues (width D) and dk (width
+    dk) as the attention backward pairs them."""
     g = x["graph"]
     src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
     D = x["v"].shape[1]
-    named = torch.zeros(V, dtype=torch.bool, device=src.device)
-    named[src[mask].long()] = True
     log(f"[kernel] {tag}: V {V}, deg {src.shape[1]}, edges "
-        f"{int(mask.sum())}, D {D}; the rule takes the {rule_form(g)} form")
+        f"{int(mask.sum())}, D {D}; the SDDMM's rule takes the "
+        f"{rule_form(g)} form, the transposed SpMM's the "
+        f"{spmm_t_rule(src, mask, V)} form")
     want_lo = bsp.sddmm_reference(x["q_s"], x["kf"], src, mask)
-    want_dk = bsp.spmm_t_reference(x["dlog"], x["q_s"], src, mask, V)
     for vdt, gdt in ((torch.float32, torch.float32),
                      (torch.bfloat16, torch.float32),
                      (torch.bfloat16, torch.bfloat16)):
         v, ct = x["v"].to(vdt), x["ct"].to(gdt)
         want_da = bsp.sddmm_reference(ct, v, src, mask)
-        want_dv = bsp.spmm_t_reference(x["alpha"], ct, src, mask, V, vdt)
+        name = f"{tag}, values {vdt} cotangent {gdt}"
         for tiled, form in FORMS:
-            name = f"{form}, {tag}, values {vdt} cotangent {gdt}"
             lo, da = sddmm_form(tiled, x["q_s"], x["kf"], src, mask, ct, v)
             single = sddmm_form(tiled, ct, v, src, mask)
             single_again = sddmm_form(tiled, ct, v, src, mask)
             single_lo = sddmm_form(tiled, x["q_s"], x["kf"], src, mask)
-            dv, dk = spmm_t_form(tiled, ((x["alpha"], ct, vdt),
-                                         (x["dlog"], x["q_s"], torch.float32)),
-                                 src, mask, V)
-            one = spmm_t_form(tiled, ((x["alpha"], ct, vdt),), src, mask, V)[0]
-            again = spmm_t_form(tiled, ((x["alpha"], ct, vdt),), src, mask,
-                                V)[0]
-            two = spmm_t_form(tiled, ((x["dlog"], x["q_s"], torch.float32),),
-                              src, mask, V)[0]
             torch.cuda.synchronize()
-            e1 = check_kernel_vs_plain(f"bsp_sddmm logits, {name}", lo,
-                                       want_lo, False)
-            e2 = check_kernel_vs_plain(f"bsp_sddmm dalpha, {name}", da,
-                                       want_da, False, scale=D ** 0.5)
-            e3 = check_kernel_vs_plain(f"bsp_spmm_t2 dvalues, {name}", dv,
-                                       want_dv, vdt == torch.bfloat16)
-            e4 = check_kernel_vs_plain(f"bsp_spmm_t2 dk, {name}", dk, want_dk,
-                                       False)
+            e1 = check_kernel_vs_plain(f"bsp_sddmm logits, {form}, {name}",
+                                       lo, want_lo, False)
+            e2 = check_kernel_vs_plain(f"bsp_sddmm dalpha, {form}, {name}",
+                                       da, want_da, False, scale=D ** 0.5)
             if not (torch.equal(single, da) and torch.equal(single_lo, lo)
                     and torch.equal(single, single_again)):
-                raise AssertionError(f"bsp_sddmm, {name}: a single launch "
-                                     "differs from the dual's output, or two "
-                                     "runs differ")
-            if not (torch.equal(one, again) and torch.equal(dv, one)
-                    and torch.equal(dk, two)):
-                raise AssertionError(f"bsp_spmm_t, {name}: two runs differ, "
-                                     "or the dual is not bit-equal to two "
-                                     "single launches")
-            if not (bool((da[~mask] == 0).all())
-                    and bool((dv[~named] == 0).all())
-                    and bool((dk[~named] == 0).all())):
-                raise AssertionError(f"{name}: masked slots and unnamed "
-                                     "sources must give 0")
+                raise AssertionError(f"bsp_sddmm, {form}, {name}: a single "
+                                     "launch differs from the dual's output, "
+                                     "or two runs differ")
+            if not bool((da[~mask] == 0).all()):
+                raise AssertionError(f"bsp_sddmm, {form}, {name}: masked "
+                                     "slots must give 0")
             if errs is not None and vdt == gdt == torch.float32:
-                errs[form] = max(errs.get(form, 0.0), e1, e2, e3, e4)
-    log(f"[kernel] {tag}: both forms agree with the plain versions; single "
-        "= dual bit for bit; transposed SpMM reruns bit for bit")
+                errs[form] = max(errs.get(form, 0.0), e1, e2)
+        check_spmm_t_forms(((x["alpha"], ct, vdt),
+                            (x["dlog"], x["q_s"], torch.float32)),
+                           src, mask, V, name,
+                           errs if vdt == gdt == torch.float32 else None)
+    log(f"[kernel] {tag}: every form agrees with the plain versions; single "
+        "= dual bit for bit; the staged transposed SpMM bit for bit the "
+        "per-edge one; reruns bit for bit")
+
+
+def check_rectangular(dev, errs: dict) -> None:
+    """Every form of the transposed SpMM on ELL lists whose sources are not
+    their rows (V 100 destination rows, not a multiple of the 64-node tile;
+    Vs 200 and 50 sources, the partitioned shard's halo and a narrower
+    source set; width 12 with duplicates and masked slots), at D 1030 and
+    4096 into dk's width 64, f32, bf16 and mixed, as
+    :func:`check_spmm_t_forms` holds them."""
+    rng = np.random.default_rng(61)
+    V, deg = 100, 12
+    for Vs in (200, 50):
+        src = torch.from_numpy(rng.integers(0, Vs, size=(V, deg)).astype(
+            np.int32)).to(dev)
+        src[:, 1] = src[:, 0]  # a duplicate slot in every row
+        mask = torch.from_numpy(rng.random((V, deg)) < 0.7).to(dev)
+        mask[::7] = False      # rows with no valid slot
+        w1 = torch.where(mask, torch.from_numpy(rng.random((V, deg)).astype(
+            np.float32)).to(dev), 0.0)
+        w2 = torch.where(mask, torch.from_numpy(rng.normal(
+            size=(V, deg)).astype(np.float32)).to(dev), 0.0)
+        x2 = torch.from_numpy(rng.normal(size=(V, 64)).astype(
+            np.float32)).to(dev)
+        for D in (1030, 4096):
+            x1 = torch.from_numpy(rng.normal(size=(V, D)).astype(
+                np.float32)).to(dev)
+            for xdt, odt in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16)):
+                check_spmm_t_forms(((w1, x1.to(xdt), odt),
+                                    (w2, x2, torch.float32)), src, mask, Vs,
+                                   f"rectangular V {V} Vs {Vs} D {D} x "
+                                   f"{xdt} out {odt}", errs)
+    log("[kernel] bsp_spmm_t, rectangular lists (Vs 200 and 50 over V 100): "
+        "every form agrees with the plain version, the staged form bit for "
+        "bit the per-edge one, single = dual and reruns bit for bit")
 
 
 def phase_form_kernels(dev) -> dict:
-    """Both forms of bsp_sddmm.cu and bsp_spmm_t.cu against their plain
-    versions at the hideg backward's node view, on the crafted graphs of
-    degree 100 and 200 (D 1030, the scalar loads, and 4096) and at the
-    swarm's training shape."""
+    """Both forms of bsp_sddmm.cu and every form of bsp_spmm_t.cu against
+    their plain versions at the hideg backward's node view, on the crafted
+    graphs of degree 100 and 200 (D 1030, the scalar loads, and 4096; V 32
+    and 128), on rectangular lists and at the swarm's training shape."""
     m = swarm_config().model
     hw = m.image_size[0] // m.bottleneck_stride
     D, dk = hw * hw * m.encoder_channels[-1], m.attention_dim
@@ -1448,6 +1574,7 @@ def phase_form_kernels(dev) -> dict:
         for D_c in (1030, 4096):
             check_forms(backward_inputs(cg.to(dev), dk, D_c, 53, dev),
                         f"{name} D {D_c}", errs)
+    check_rectangular(dev, errs)
     g = next(iter(make_dataset(swarm_config().data, "train")))["graph"].to(dev)
     xs = backward_inputs(g, dk, D, 55, dev)
     check_forms(xs, "swarm train", errs)
@@ -1496,26 +1623,116 @@ def phase_form_timings(fk: dict, tag: dict) -> None:
             name) or backward_inputs(g, dk, D, 57 + seed, dev)
         src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
         edges, pairs = int(mask.sum()), len(bsp.tile_pairs(src, mask))
+        t_forms = spmm_t_forms(int(src.shape[1]))
         ms = {"sddmm": {"per-edge": [], "tiled": []},
-              "spmm_t2": {"per-edge": [], "tiled": []}}
+              "spmm_t2": {f: [] for f in t_forms}}
         for form in ("per-edge", "tiled", "tiled", "per-edge"):
             tiled = form == "tiled"
             ms["sddmm"][form].append(device_ms(lambda: sddmm_form(
                 tiled, x["q_s"], x["kf"], src, mask, x["ct"], x["v"])))
+        for form in t_forms + t_forms[::-1]:
             ms["spmm_t2"][form].append(device_ms(lambda: spmm_t_form(
-                tiled, ((x["alpha"], x["ct"], torch.float32),
-                        (x["dlog"], x["q_s"], torch.float32)), src, mask, V)))
+                form, ((x["alpha"], x["ct"], torch.float32),
+                       (x["dlog"], x["q_s"], torch.float32)), src, mask, V)))
         rows.append({"graph": name, "V": V, "deg": int(src.shape[1]),
                      "edges": edges, "tile_pairs": pairs,
                      "fill": edges / (pairs * bsp.TILE ** 2),
-                     "rule": rule_form(g), "device_ms": ms})
+                     "rule": rule_form(g),
+                     "spmm_t_rule": spmm_t_rule(src, mask, V),
+                     "device_ms": ms})
     log(json.dumps({"metric": "form_ab", "D1": D, "D2": dk, "rows": rows,
                     "timing": "device time per call (profiler), f32, the "
                               "dual SDDMM (q_s, k) + (g, values) and the dual "
                               "transposed SpMM (alpha, g) + (dlog, q_s), the "
                               "per-edge form including its source view; "
-                              "turns per-edge, tiled, tiled, per-edge",
+                              "turns per-edge, tiled, tiled, per-edge (the "
+                              "SDDMM) and the transposed SpMM's forms in "
+                              "order, then reversed",
                     **tag}))
+
+
+# Teams of SPMM_T_TEAM robots packed into V node slots, at the widths the
+# staged form's rule is timed on (bsp.STAGED_MAX_NODES).
+SPMM_T_TEAM, SPMM_T_RULE_V, SPMM_T_RULE_D = 8, (1024, 2048, 4096, 8192), (2048, 8192)
+
+
+def phase_spmm_t_form_timings(tk: dict, bk2: dict, tag: dict) -> None:
+    """Device time per call of the transposed SpMM's forms in turns (in
+    order, then reversed; f32): at the attention path's dual launch (alpha
+    and the cotangent, dvalues at D 8192; dlog and q_s, dk at 64) and the
+    bsp2 path's two single launches (dvalues, dk), each of: the staged form,
+    the per-edge kernel alone (its source view built outside the clock),
+    the per-edge kernel with its view built inside the clock (the form as
+    the paths ran it before the staged form), the tiled form and
+    torch.sparse.mm of the CSR of w transposed (one call a pair), beside the
+    bound and the rule's form; then the staged form against the per-edge
+    form with its view, in turns, on fully connected teams of SPMM_T_TEAM
+    robots at V 1,024 to 8,192 (width 7, D 2048 and 8192): the crossover
+    behind bsp.STAGED_MAX_NODES."""
+    rows = []
+    a, b = tk["inputs"], bk2["inputs"]
+    cases = (("attention dual", a, ((a["alpha"], a["ct"], torch.float32),
+                                    (a["dlog"], a["q_s"], torch.float32))),
+             ("bsp2 dvalues", b, ((b["alpha"], b["ct"], torch.float32),)),
+             ("bsp2 dk", b, ((b["dlog"], b["q_s"], torch.float32),)))
+    for name, x, pairs in cases:
+        g = x["graph"]
+        src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
+        deg = src.shape[1]
+        edges = int(mask.sum())
+        r = torch.arange(V, device=src.device)[:, None].expand(V, deg)[mask]
+        c = src[mask].long()
+        csrs = [_csr(c, r, w[mask], (V, V)) for w, _, _ in pairs]
+        view = bsp.source_view(src, mask, V)
+        fns = {
+            "staged": lambda: spmm_t_form("staged", pairs, src, mask, V),
+            "per-edge": lambda: spmm_t_form("per-edge", pairs, src, mask, V,
+                                            view),
+            "per-edge + view": lambda: spmm_t_form("per-edge", pairs, src,
+                                                   mask, V),
+            "tiled": lambda: spmm_t_form("tiled", pairs, src, mask, V),
+            "torch.sparse.mm": lambda: [torch.sparse.mm(m, xx) for m, (
+                _, xx, _) in zip(csrs, pairs)]}
+        times = {n: [] for n in fns}
+        for n in list(fns) + list(fns)[::-1]:
+            times[n].append(device_ms(fns[n]))
+        outs = spmm_t_form("staged", pairs, src, mask, V)
+        bound = bound_ms((*(t for w, xx, _ in pairs for t in (w, xx)), src,
+                          mask), outs,
+                         sum(2 * edges * xx.shape[1] for _, xx, _ in pairs))
+        rows.append({"case": name, "V": V, "deg": deg, "edges": edges,
+                     "D": [xx.shape[1] for _, xx, _ in pairs],
+                     "rule": spmm_t_rule(src, mask, V), "device_ms": times,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+    dev = a["graph"].ell_src.device
+    rng = np.random.default_rng(71)
+    rule_rows = []
+    for V in SPMM_T_RULE_V:
+        team = batch_fully_connected(V // SPMM_T_TEAM, SPMM_T_TEAM,
+                                     max_nodes=V).to(dev)
+        src, mask = team.ell_src, team.ell_mask
+        w = torch.where(mask, torch.from_numpy(rng.random(
+            tuple(src.shape)).astype(np.float32)).to(dev), 0.0)
+        for D in SPMM_T_RULE_D:
+            xx = torch.from_numpy(rng.normal(size=(V, D)).astype(
+                np.float32)).to(dev)
+            pairs = ((w, xx, torch.float32),)
+            times = {"staged": [], "per-edge + view": []}
+            for n in ("staged", "per-edge + view", "per-edge + view",
+                      "staged"):
+                times[n].append(device_ms(lambda: spmm_t_form(
+                    n.split()[0], pairs, src, mask, V)))
+            rule_rows.append({"V": V, "deg": int(src.shape[1]), "D": D,
+                              "rule": spmm_t_rule(src, mask, V),
+                              "device_ms": times})
+            del xx
+    log(json.dumps({"metric": "spmm_t_form_ab", "rows": rows,
+                    "rule_rows": rule_rows,
+                    "timing": "device time per call (profiler), f32; turns "
+                              "in the order given, then reversed; per-edge "
+                              "walks a view built outside the clock, per-edge "
+                              "+ view builds it inside (bsp.source_view: a "
+                              "sort and a search)", **tag}))
 
 
 def _expected(per: dict) -> dict:
@@ -1608,16 +1825,24 @@ def phase_train(dev, cfg, per_step: dict, path: str,
     step = train.make_train_step(cfg, state.model, state.optimizer)
     torch.cuda.synchronize()
     bsp.reset_launches()  # the training path starts here
-    terms = []
+    terms, views = [], []
     for i, x in enumerate(inputs):
         before = bsp.launch_counts()
-        state, t = step(state, *x)
+        with counted_views() as calls:
+            state, t = step(state, *x)
         got = _delta(before, bsp.launch_counts())
         if got != want:
             raise AssertionError(f"{path} train step {i}: launches {got}, "
                                  f"expected {want}")
         terms.append(t)
+        views.append(calls[0])
     launches = bsp.launch_counts()  # the training path ends here
+    # Every path's transposed SpMM takes the staged or the tiled form
+    # (bsp.spmm_t_form at V 256 and 512), so no step sorts a source view.
+    if any(views):
+        raise AssertionError(f"{path}: bsp.source_view ran {views} times in "
+                             "the 3 steps; the rule takes no per-edge form")
+    log(f"[train {path}] bsp.source_view calls per step: {views}")
     terms = [{k: float(v) for k, v in t.items()} for t in terms]
     plain_opt = train.make_optimizer(cfg_plain, plain_model.parameters())
     plain_state = train.TrainState(plain_model, plain_opt)
@@ -2078,14 +2303,12 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
 
     def dual(b):
         return lambda: bsp.spmm_t2(b["alpha"], b["ct"], b["dlog"], b["q_s"],
-                                   b["src"], b["mask"], b["V"], view=b["view"])
+                                   b["src"], b["mask"], b["V"])
 
     def separate(b):
         return lambda: (
-            bsp.spmm_t(b["alpha"], b["ct"], b["src"], b["mask"], b["V"],
-                       view=b["view"]),
-            bsp.spmm_t(b["dlog"], b["q_s"], b["src"], b["mask"], b["V"],
-                       view=b["view"]))
+            bsp.spmm_t(b["alpha"], b["ct"], b["src"], b["mask"], b["V"]),
+            bsp.spmm_t(b["dlog"], b["q_s"], b["src"], b["mask"], b["V"]))
 
     h = operands(bk2["hideg"])
     D = h["ct"].shape[1]
@@ -2095,8 +2318,8 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
         "bsp_spmm_t2", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
         "mrp_gnn_tpu/ops/pallas_bsp.py:537",
         {"V": h["V"], "deg": h["src"].shape[1], "D1": D, "D2": dk,
-         "edges": h["edges"], "dtype": "float32", "form": rule_form(
-             bk2["hideg"]["graph"]),
+         "edges": h["edges"], "dtype": "float32", "form": spmm_t_rule(
+             h["src"], h["mask"], h["V"]),
          "use": "dvalues and dk of the hideg backward, node view"},
         dual(h),
         lambda: bsp.spmm_t2_reference(h["alpha"], h["ct"], h["dlog"],
@@ -2121,7 +2344,7 @@ def phase_bsp2_timings(bk2: dict, tag: dict) -> list:
     log(json.dumps({"metric": "spmm_t2_ab", "kernels": ab,
                     "timing": "device time per call (profiler), f32, dual = "
                               "one bsp_spmm_t2 launch, separate = two "
-                              "bsp_spmm_t launches over the same view; turns "
+                              "bsp_spmm_t launches; turns "
                               "separate, dual, dual, separate", **tag}))
     return out
 
@@ -2145,7 +2368,6 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     q_s, kf, v, ct, alpha, dlog = (x[n] for n in ("q_s", "kf", "v", "ct",
                                                   "alpha", "dlog"))
     D, dk = v.shape[1], q_s.shape[1]
-    view = bsp.source_view(src, mask, V)
     out = []
 
     def record(*args):
@@ -2183,15 +2405,15 @@ def phase_train_kernel_timings(tk: dict, tag: dict) -> list:
     record("bsp_spmm_t", "mrp_gnn_tpu_torch/ops/csrc/bsp_spmm_t.cu",
            "mrp_gnn_tpu/ops/pallas_bsp.py:459",
            {"V": V, "deg": deg, "D": D, "edges": edges, "use": "dvalues",
-            "form": rule_form(g), "dtype": "float32"},
-           lambda: bsp.spmm_t(alpha, ct, src, mask, V, view=view),
+            "form": spmm_t_rule(src, mask, V), "dtype": "float32"},
+           lambda: bsp.spmm_t(alpha, ct, src, mask, V),
            lambda: bsp.spmm_t_reference(alpha, ct, src, mask, V),
            lambda: torch.sparse.mm(wt_csr, ct),
            "torch.sparse.mm(CSR of w transposed, x)",
            bound_ms((alpha, ct, src, mask), (ct,), 2 * edges * D))
     leaves = [t.detach().requires_grad_() for t in (q_s, kf, v)]
     parts = {
-        "spmm_t_dk": lambda: bsp.spmm_t(dlog, q_s, src, mask, V, view=view),
+        "spmm_t_dk": lambda: bsp.spmm_t(dlog, q_s, src, mask, V),
         "source_view": lambda: bsp.source_view(src, mask, V),
         "backward": lambda: bsp.fused_attention_backward(q_s, kf, v, src,
                                                          mask, ct),
@@ -2288,7 +2510,10 @@ def profile_device(fn, n: int, metric: str, unit: str, tag: dict) -> dict:
 # and bsp2 paths, the masked max's kernel on the max path, the softmax's
 # register form on the ell path and the weights' rows form on bsp2.
 # TRAIN_BODIES: what a path's train profile must show besides (bsp2: dq's
-# SpMM at D 64 in the row form).
+# SpMM at D 64 in the row form; the staged transposed SpMM wherever a
+# transposed SpMM runs at the swarm's ELL width); no train profile may show
+# the per-edge transposed SpMM's bodies (TRAIN_NOT_RUN), which the rule
+# takes on no path.
 PATH_BODIES = {
     "attention": (("fused_vec_kernel",), ("fused_attention_kernel",)),
     "ell": (("sddmm_rows_kernel", "ell_softmax_register_kernel",
@@ -2303,16 +2528,19 @@ PATH_BODIES = {
 }
 
 
-TRAIN_BODIES = {"attention": ("sddmm_wide_kernel",),
-                "bsp2": ("spmm_kernel",)}
+TRAIN_BODIES = {"attention": ("sddmm_wide_kernel", "spmm_t_staged_kernel"),
+                "mean": ("spmm_t_staged_kernel",),
+                "bsp2": ("spmm_kernel", "spmm_t_staged_kernel")}
+TRAIN_NOT_RUN = ("spmm_t_kernel", "spmm_t2_kernel")
 
 
 def check_path_bodies(path: str, ours: dict, where: str) -> None:
     """The path ran the kernel bodies of PATH_BODIES (and of TRAIN_BODIES
-    in its train profile)."""
+    in its train profile, and none of TRAIN_NOT_RUN)."""
     run, not_run = PATH_BODIES[path]
     if where == "train profile":
         run = run + TRAIN_BODIES.get(path, ())
+        not_run = not_run + TRAIN_NOT_RUN
     if not (all(b in ours for b in run) and not any(b in ours for b in not_run)):
         raise AssertionError(f"the {path} path's {where} ran {sorted(ours)}, "
                              f"expected {run} and none of {not_run}")
@@ -2779,8 +3007,10 @@ PARALLEL_TIMEOUT_S = 600
 PARALLEL_SEED = 13
 TOL_PARALLEL = 1e-5         # fusion (relative to max(1, max |want|)), terms
 # The kernel bodies one rank's attention train step must show: the SpMM's
-# vector form (D 8192), the wide SDDMM (dα, d 8192) and the transposed SpMM.
-PARALLEL_BODIES = ("spmm_vec_kernel", "sddmm_wide_kernel", "spmm_t_kernel")
+# vector form (D 8192), the wide SDDMM (dα, d 8192) and the transposed
+# SpMM's staged form.
+PARALLEL_BODIES = ("spmm_vec_kernel", "sddmm_wide_kernel",
+                   "spmm_t_staged_kernel")
 # Rows 3, 4 and 5 as the partitioned fusion calls them, by their plain
 # versions, against which each call on a shard is held.
 PARALLEL_WRAPPERS = {"spmm": bsp.spmm_reference, "sddmm": bsp.sddmm_reference,
@@ -2904,10 +3134,14 @@ class _ShardCalls:
             v = args[2]
             form = bsp.FUSED_FORMS[bsp.fused_form(
                 8 if bsp._vec8(v) else 1, v.dtype == torch.bfloat16)]
+        elif name in ("spmm_t", "spmm_t2"):
+            dual = name == "spmm_t2"
+            src, mask = args[4:6] if dual else args[2:4]
+            form = spmm_t_rule(src, mask, args[6 if dual else 4])
         else:
             return
-        self.forms.setdefault(name, {})[str(args[1 if name == "spmm"
-                                                 else 2].shape[1])] = form
+        self.forms.setdefault(name, {})[str(args[
+            2 if name == "fused_attention" else 1].shape[1])] = form
 
     def _held(self, name, fn):
         def wrapped(*args, **kw):
@@ -2973,7 +3207,10 @@ def _rank_fusion(pctx, dev, out_dir: str) -> dict:
         np.savez(os.path.join(out_dir, "fusion.npz"), **res)
     shards = [None] * pctx.mesh.size
     torch.distributed.all_gather_object(shards, held.errors)
-    return {"cases": len(PARALLEL_CASES), "shard_kernels": shards}
+    forms = [None] * pctx.mesh.size
+    torch.distributed.all_gather_object(forms, held.forms)
+    return {"cases": len(PARALLEL_CASES), "shard_kernels": shards,
+            "forms": forms}
 
 
 def _timed_step(step, dev) -> tuple:
@@ -3130,10 +3367,14 @@ def parallel_rank_main(argv) -> int:
     mark("fusion")
     # the main path of the phase: counts reset just before, read just after
     bsp.reset_launches()
-    state, records = train.train(cfg, num_steps=PARALLEL_STEPS, device=dev)
+    with counted_views() as views:
+        state, records = train.train(cfg, num_steps=PARALLEL_STEPS,
+                                     device=dev)
     launches = [None] * world
     torch.distributed.all_gather_object(launches, bsp.launch_counts())
     out["launches"] = launches
+    out["source_views"] = [None] * world
+    torch.distributed.all_gather_object(out["source_views"], views[0])
     out["straight"] = _train_terms(records, range(1, PARALLEL_STEPS + 1))
     digests = [None] * world
     torch.distributed.all_gather_object(digests, param_digest(state.model))
@@ -3309,6 +3550,13 @@ def phase_parallel(dev, tag: dict, rank_device: str | None = None) -> dict:
         f"boundary fraction {got['boundary_fraction']:.6f}, rows received "
         f"per shard: {json.dumps(got['exchange_rows'])}")
     shard = _check_shard_kernels(got["fusion"]["shard_kernels"])
+    for r, forms in enumerate(got["fusion"]["forms"]):
+        if set(forms.get("spmm_t", {}).values()) != {"staged"}:
+            raise AssertionError(f"rank {r}'s transposed SpMM took "
+                                 f"{forms.get('spmm_t')}; the staged form "
+                                 "was expected at every width")
+    log(f"[parallel] the transposed SpMM's form on the shards, by width, on "
+        f"rank 0: {json.dumps(got['fusion']['forms'][0].get('spmm_t'))}")
     log(f"[parallel] rows 3-5 on every rank's shard vs their plain versions: "
         f"max err {json.dumps(shard)}")
     errs = _parallel_reference_fusion(dev, fusion)
@@ -3325,6 +3573,12 @@ def phase_parallel(dev, tag: dict, rank_device: str | None = None) -> dict:
         f"{len(got['launches'])} ranks: bsp_spmm 1, bsp_sddmm 1, bsp_spmm_t 1 "
         f"({json.dumps({k: v for k, v in want.items() if v})} over "
         f"{PARALLEL_STEPS} steps)")
+    if any(got["source_views"]):
+        raise AssertionError(f"bsp.source_view ran on the ranks: "
+                             f"{got['source_views']}; the rule takes the "
+                             "staged form on every shard")
+    log(f"[parallel] bsp.source_view calls over {PARALLEL_STEPS} steps, by "
+        f"rank: {got['source_views']}")
     if len(set(got["digests"])) != 1:
         raise AssertionError(f"parameters differ across ranks: {got['digests']}")
     if got["resumed"] != got["straight"][2:]:
@@ -3415,10 +3669,13 @@ MODEL_AXIS_PER_STEP = {
            "bsp_spmm_t2": 1},
     "spatial": {"bsp_spmm": 1, "bsp_sddmm": 1, "bsp_spmm_t": 1}}
 MODEL_AXIS_WIDTH = {"tp": 4096, "spatial": 2048}
-# the form each path's widest kernel must take there (``bsp.spmm_form``:
-# the SpMM's vector form from D 2048)
-MODEL_AXIS_FORMS = {"tp": {"fused_attention": {"4096": "vec"}},
-                    "spatial": {"spmm": {"2048": "vec"}}}
+# the form each path's widest kernels must take there (``bsp.spmm_form``:
+# the SpMM's vector form from D 2048; ``bsp.spmm_t_form``: the staged
+# transposed SpMM)
+MODEL_AXIS_FORMS = {"tp": {"fused_attention": {"4096": "vec"},
+                           "spmm_t2": {"4096": "staged"}},
+                    "spatial": {"spmm": {"2048": "vec"},
+                                "spmm_t": {"2048": "staged"}}}
 
 
 def model_axis_config(mode: str | None = None, checkpoint_dir: str = ""):
@@ -3600,8 +3857,11 @@ def model_axis_rank_main(argv) -> int:
     mark("held updates")
     # the main path of the phase: counts reset just before, read just after
     bsp.reset_launches()
-    state, records = train.train(cfg, num_steps=MODEL_AXIS_STEPS, device=dev)
+    with counted_views() as views:
+        state, records = train.train(cfg, num_steps=MODEL_AXIS_STEPS,
+                                     device=dev)
     out["launches"] = gathered(bsp.launch_counts())
+    out["source_views"] = gathered(views[0])
     out["straight"] = _train_terms(records, range(1, MODEL_AXIS_STEPS + 1))
     out["replicated_digests"] = gathered(param_digest_of(
         {n: p for n, p in state.model.named_parameters()
@@ -3712,6 +3972,11 @@ def _check_model_axis(mode: str, got: dict, single: list, first_one: dict,
                                  f"expected {want}")
     log(f"[model axis] {mode}: launches per rank per step, on each of the "
         f"{world} ranks: {json.dumps(per)}")
+    if any(got["source_views"]):
+        raise AssertionError(f"{mode}: bsp.source_view ran on the ranks: "
+                             f"{got['source_views']}")
+    log(f"[model axis] {mode}: bsp.source_view calls over "
+        f"{MODEL_AXIS_STEPS} steps, by rank: {got['source_views']}")
     if len(set(got["replicated_digests"])) != 1:
         raise AssertionError(f"{mode}: replicated parameters differ across "
                              f"ranks")
@@ -3937,6 +4202,7 @@ def main() -> int:
         phase_spmm_form_timings(gk, tag)
         phase_softmax_form_timings(sk, tag)
         phase_form_timings(fk, tag)
+        phase_spmm_t_form_timings(tk, bk2, tag)
         phase_variant_timings(kin, ek, tag)
         check_path_bodies("attention", phase_train_timings(tr["attention"],
                                                            tag),

@@ -21,6 +21,13 @@ forms, chosen by :func:`tiled_form` from the ELL shape: per-edge (a block
 per row, or per source over a source-major view of the valid slots,
 :func:`source_view`) and tiled (dense blocks per pair of node tiles that
 holds a valid slot, :func:`tile_pairs`), for ELL widths from TILED_MIN_DEG.
+Below that width the transposed SpMM has a third, the staged form (a block
+per tile of TILE sources builds its own source-major slot list in shared
+memory and stages each destination row once: one launch, no view), which
+:func:`spmm_t_form` takes up to STAGED_MAX_NODES nodes and an ELL width of
+STAGED_MAX_DEG; past them the per-edge form and its view stay.
+``_run_spmm_t(..., form=)``, a test-only argument, forces a form of
+SPMM_T_FORMS.
 The fused forward and the SpMM each have a row form and a vector form,
 chosen by :func:`fused_form` and :func:`spmm_form` from the values' type
 and width; the attention weights a block and a warp-per-row form, chosen
@@ -74,6 +81,16 @@ MAX_DK = 256      # the fused kernels keep a row's query in shared memory
 TILE = 64
 TILED_MIN_DEG = 64
 TILED_MAX_DENSE = 1 << 24
+# The forms of the transposed SpMM (csrc/bsp_spmm_t.cu), by their index
+# there (whose note describes each): "per-edge" (over :func:`source_view`),
+# "tiled" and "staged". :func:`spmm_t_form` takes "tiled" where
+# :func:`tiled_form` does, "staged" up to an ELL width of STAGED_MAX_DEG
+# while the destination and source nodes stay within STAGED_MAX_NODES and
+# ell_src and ell_mask are 16-byte aligned, "per-edge" otherwise: the
+# faster form at each shape measured on the card (PERF.md section 6).
+SPMM_T_FORMS = ("per-edge", "tiled", "staged")
+STAGED_MAX_NODES = 2048
+STAGED_MAX_DEG = 32
 _KERNEL = "bsp_fused_attention"
 # The forms of the fused forward, by their index in
 # csrc/bsp_fused_attention.cu (whose note describes each): "row" (any D)
@@ -249,9 +266,41 @@ def tiled_form(V: int, Vs: int, deg: int) -> bool:
     (destination tile, source tile) pair, from an ELL width of
     TILED_MIN_DEG and while a dense [V, Vs] weight matrix fits
     TILED_MAX_DENSE elements; the per-edge form below it, where a 64 x 64
-    block would be mostly empty. PERF.md section 6 gives the crossover
-    measured on the card."""
+    block would be mostly empty (the transposed SpMM's per-edge side is
+    :func:`spmm_t_form`'s). PERF.md section 6 gives the crossover measured
+    on the card."""
     return deg >= TILED_MIN_DEG and V * Vs <= TILED_MAX_DENSE
+
+
+def spmm_t_form(V: int, Vs: int, deg: int, aligned: bool = True,
+                form: str | None = None) -> int:
+    """The index in SPMM_T_FORMS of the transposed SpMM's form for a launch
+    over ELL lists [V, deg] into Vs output rows, on the shape alone (no
+    host sync; the single and the dual launch take the same form).
+    ``aligned``: ell_src and ell_mask start on 16 bytes, as the staged
+    form's loads need. ``form`` None takes "tiled" where
+    :func:`tiled_form` does, else "staged" up to STAGED_MAX_NODES
+    destination and source nodes and an ELL width of STAGED_MAX_DEG (past
+    them each of its blocks reads an index that grows with V, or its chains
+    grow with the width, and the per-edge form was faster on the card),
+    else "per-edge"; a name of SPMM_T_FORMS forces that form (the card's
+    checks and A/B). Raises ValueError for an unknown form, or "staged" on
+    operands that are not aligned."""
+    if form is None:
+        if tiled_form(V, Vs, deg):
+            form = "tiled"
+        elif (aligned and max(V, Vs) <= STAGED_MAX_NODES
+              and deg <= STAGED_MAX_DEG):
+            form = "staged"
+        else:
+            form = "per-edge"
+    if form not in SPMM_T_FORMS:
+        raise ValueError(f"unknown transposed SpMM form {form!r}; one of "
+                         f"{SPMM_T_FORMS}")
+    if form == "staged" and not aligned:
+        raise ValueError("the staged form needs ell_src and ell_mask "
+                         "16-byte aligned")
+    return SPMM_T_FORMS.index(form)
 
 
 def tile_pairs(ell_src: torch.Tensor, ell_mask: torch.Tensor) -> torch.Tensor:
@@ -273,6 +322,12 @@ def _scratch(source: str, *args) -> int:
         fn.argtypes = [ctypes.c_int] * len(args)
         fn.restype = ctypes.c_longlong
     return int(fn(*args))
+
+
+def _aligned16(*tensors) -> bool:
+    """Every tensor starts on 16 bytes (the staged transposed SpMM reads
+    ell_src and ell_mask 16 and 4 bytes at a time)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _vec8(*tensors) -> bool:
@@ -751,11 +806,13 @@ def spmm_t(w: torch.Tensor, x: torch.Tensor, ell_src: torch.Tensor,
            ell_mask: torch.Tensor, num_rows: int,
            out_dtype: torch.dtype | None = None,
            view: tuple | None = None) -> torch.Tensor:
-    """Kernel wrapper, same contract as :func:`spmm_t_reference`.
+    """Kernel wrapper, same contract as :func:`spmm_t_reference`, in the
+    form :func:`spmm_t_form` gives (the staged form at the paths' ELL
+    widths and sizes, which builds no view).
 
-    ``view``: the batch's :func:`source_view`, which the per-edge form
+    ``view``: the batch's :func:`source_view`, which only the per-edge form
     walks; built here when that form runs and it is not given (the tiled
-    form needs none). Counted in ``spmm_t.launches``.
+    and staged forms need none). Counted in ``spmm_t.launches``.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -786,11 +843,12 @@ def spmm_t2(w1: torch.Tensor, x1: torch.Tensor, w2: torch.Tensor,
             view: tuple | None = None) -> tuple:
     """Kernel wrapper, same contract as :func:`spmm_t2_reference`: both
     transposed SpMMs from one launch of the dual form of
-    ``csrc/bsp_spmm_t.cu`` (the TPU's ``_spmm_t2_kernel``), over one
-    :func:`source_view` where the per-edge form runs. x1 and x2 may differ
-    in width and dtype. On CUDA each output has the bits of a single
-    :func:`spmm_t` launch (both take the form of :func:`tiled_form`);
-    counted in ``spmm_t2.launches``, apart from :func:`spmm_t`."""
+    ``csrc/bsp_spmm_t.cu`` (the TPU's ``_spmm_t2_kernel``), in the form
+    :func:`spmm_t_form` gives (over one :func:`source_view` where the
+    per-edge form runs). x1 and x2 may differ in width and dtype. On CUDA
+    each output has the bits of a single :func:`spmm_t` launch (both take
+    the same form); counted in ``spmm_t2.launches``, apart from
+    :func:`spmm_t`."""
     out1_dtype = out1_dtype or x1.dtype
     out2_dtype = out2_dtype or x2.dtype
     if x1.device.type == "cpu":
@@ -811,11 +869,12 @@ def _spmm_t_flags(x: torch.Tensor, out: torch.Tensor) -> int:
 
 
 def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
-                view, tiled: bool | None = None) -> list:
+                view, form: str | None = None) -> list:
     """Check CUDA inputs and launch ``bsp_spmm_t.cu`` (any ELL width) for
     one (w, x, out_dtype) pair or two, counting the launch in
-    ``counter.launches``. ``tiled`` None takes the form :func:`tiled_form`
-    gives; True or False forces one (the card's tests of both forms)."""
+    ``counter.launches``. ``form`` None takes the form :func:`spmm_t_form`
+    gives; a name of SPMM_T_FORMS forces one (the card's tests and A/B of
+    the forms)."""
     tensors = {}
     for i, (w, x, _) in enumerate(pairs, 1):
         tensors.update({f"w{i}": w, f"x{i}": x})
@@ -840,20 +899,20 @@ def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
         return outs
     if V * deg == 0:
         return [o.zero_() for o in outs]
-    if tiled is None:
-        tiled = tiled_form(V, num_rows, deg)
+    index = spmm_t_form(V, num_rows, deg, _aligned16(ell_src, ell_mask),
+                        form)
     x = pairs[0][1]
-    if tiled:
-        offsets = slots = None
+    offsets = slots = scratch = None
+    if SPMM_T_FORMS[index] == "tiled":
         scratch = torch.empty(_scratch("bsp_spmm_t", V, num_rows,
                                        int(len(pairs) > 1)),
                               dtype=torch.uint8, device=x.device)
-    else:
+    elif SPMM_T_FORMS[index] == "per-edge":
         offsets, slots = view if view is not None else source_view(
             ell_src, ell_mask, num_rows)
         if offsets.shape != (num_rows + 1,) or slots.shape != (V * deg,):
             raise ValueError("view does not fit this batch and num_rows")
-        offsets, slots, scratch = offsets.data_ptr(), slots.data_ptr(), None
+        offsets, slots = offsets.data_ptr(), slots.data_ptr()
     args = []
     for (w, x_i, _), out in zip(pairs, outs):
         args += [w.data_ptr(), x_i.data_ptr(), out.data_ptr(), x_i.shape[1],
@@ -865,9 +924,9 @@ def _run_spmm_t(counter, pairs, ell_src, ell_mask, num_rows: int,
                + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
                *args, offsets, slots, ell_src.data_ptr(), ell_mask.data_ptr(),
-               V, num_rows, deg, int(tiled),
-               scratch.data_ptr() if tiled else None, x.device.index,
-               _build.stream(x))
+               V, num_rows, deg, index,
+               None if scratch is None else scratch.data_ptr(),
+               x.device.index, _build.stream(x))
     counter.launches += 1
     return outs
 
@@ -968,8 +1027,6 @@ class BspWeights(torch.autograd.Function):
         q_s, k, ell_src, ell_mask, alpha = ctx.saved_tensors
         dlog = _softmax_bwd(alpha, g.float(), ell_mask).contiguous()
         dq = spmm(dlog, k, ell_src, ell_mask)
-        # The transposed SpMM builds its own source view here, as
-        # WeightedAggregate's backward does for the same batch before it.
         dk = spmm_t(dlog, q_s, ell_src, ell_mask, k.shape[0], k.dtype)
         return dq.to(q_s.dtype), dk, None, None
 

@@ -28,7 +28,8 @@ constexpr int kTile = 64;
 
 // VEC consecutive elements of T, converted to and from f32. VEC 8 reads
 // 32 bytes of f32 or 16 bytes of bf16 and needs the address aligned to 16
-// bytes; VEC 1 takes any address.
+// bytes, a VEC 4 store of bf16 8 bytes aligned to 8; VEC 1 takes any
+// address.
 template <typename T, int VEC>
 struct VecIO;
 
@@ -81,6 +82,17 @@ struct VecIO<__nv_bfloat16, 8> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = v;
+  }
+};
+
+template <>
+struct VecIO<__nv_bfloat16, 4> {  // stores only (the staged transposed SpMM)
+  __device__ static void store(__nv_bfloat16* p, const float* x) {
+    uint2 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    *reinterpret_cast<uint2*>(p) = v;
   }
 };
 

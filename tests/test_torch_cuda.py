@@ -633,13 +633,13 @@ def test_sddmm_forms_match_plain(dev, tiled, D, dtypes, graph):
     assert bool((out2[~mask] == 0).all())
 
 
-@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("form", bsp.SPMM_T_FORMS)
 @pytest.mark.parametrize("D", [8192, 1030])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("graph", ["square", "wide"])
-def test_spmm_t_forms_match_plain_bit_for_bit(dev, tiled, D, dtypes, graph):
+def test_spmm_t_forms_match_plain_bit_for_bit(dev, form, D, dtypes, graph):
     """Each form of bsp_spmm_t.cu, forced, against the plain version, as
     the attention backward pairs dvalues (width D) and dk (width 64, f32):
     two single launches give the same bits, the dual gives the bits of the
@@ -652,9 +652,9 @@ def test_spmm_t_forms_match_plain_bit_for_bit(dev, tiled, D, dtypes, graph):
     w2 = torch.where(mask, _weights(g, 26), 0.0)
     p1, p2 = (w1, x1, dtypes[1]), (w2, x2, torch.float32)
     out1, out2 = bsp._run_spmm_t(_Uncounted, (p1, p2), src, mask, V, None,
-                                 tiled=tiled)
+                                 form=form)
     one, again, two = (bsp._run_spmm_t(_Uncounted, (p,), src, mask, V, None,
-                                       tiled=tiled)[0] for p in (p1, p1, p2))
+                                       form=form)[0] for p in (p1, p1, p2))
     torch.cuda.synchronize()
     assert torch.equal(one, again) and torch.equal(out1, one)
     assert torch.equal(out2, two)
@@ -669,21 +669,97 @@ def test_spmm_t_forms_match_plain_bit_for_bit(dev, tiled, D, dtypes, graph):
     assert bool((out1[unnamed] == 0).all() and (out2[unnamed] == 0).all())
 
 
-def test_wrappers_take_the_form_of_the_rule(dev):
-    """bsp.sddmm and bsp.spmm_t2 give the bits of the form that
-    bsp.tiled_form picks for the ELL shape: per-edge at width 40, tiled at
-    width 200."""
-    for graph, want_tiled in (("square", False), ("wide", True)):
-        g = (_graph() if graph == "square" else _wide_graph()).to(dev)
+def test_wrappers_take_the_form_of_the_rule(dev, monkeypatch):
+    """bsp.sddmm and bsp.spmm_t give the bits of the forms that
+    bsp.tiled_form and bsp.spmm_t_form pick for the ELL shape: per-edge at
+    width 40 (past STAGED_MAX_DEG), the transposed SpMM staged at width 8
+    (the crafted scenes alone), tiled at width 200; only the per-edge
+    transposed SpMM builds a source view."""
+    views = []
+    real = bsp.source_view
+    monkeypatch.setattr(bsp, "source_view",
+                        lambda *a: views.append(1) or real(*a))
+    narrow = build_graph_batch(
+        [np.array([[1, 1, 2, 3, 0, 5, 5, 5], [0, 0, 0, 1, 2, 4, 4, 4]])],
+        [6], max_nodes=64, max_edges=8)
+    for graph, want_tiled, want_t in (("square", False, "per-edge"),
+                                      ("narrow", False, "staged"),
+                                      ("wide", True, "tiled")):
+        g = {"square": _graph, "wide": _wide_graph,
+             "narrow": lambda: narrow}[graph]().to(dev)
         src, mask, V = g.ell_src, g.ell_mask, g.max_nodes
         assert bsp.tiled_form(V, V, src.shape[1]) == want_tiled
+        assert bsp.SPMM_T_FORMS[bsp.spmm_t_form(V, V, src.shape[1])] == want_t
         a, b, x = _inputs(dev, V, 256, 256, 256, seed=27)
         w = bsp.masked_softmax(_weights(g, 28), mask)
         assert torch.equal(bsp.sddmm(a, b, src, mask), bsp.run_sddmm(
             _Uncounted, a, b, src, mask, tiled=want_tiled))
-        assert torch.equal(bsp.spmm_t(w, x, src, mask, V), bsp._run_spmm_t(
+        views.clear()
+        got = bsp.spmm_t(w, x, src, mask, V)
+        assert len(views) == (want_t == "per-edge")
+        assert torch.equal(got, bsp._run_spmm_t(
             _Uncounted, ((w, x, torch.float32),), src, mask, V, None,
-            tiled=want_tiled)[0])
+            form=want_t)[0])
+
+
+def _rect_lists(dev, V, Vs, deg, seed):
+    """ELL lists of V destination rows over Vs sources (V not a multiple of
+    the 64-node tile): a duplicate slot in every row, rows with no valid
+    slot, and 5 sources no slot names."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, Vs - 5, size=(V, deg)).astype(np.int32)
+    src[:, 1] = src[:, 0]
+    mask = rng.random((V, deg)) < 0.7
+    mask[::7] = False
+    return torch.from_numpy(src).to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("D", [64, 1030, 8192])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("lists", ["square", "more sources", "fewer sources"])
+def test_staged_spmm_t_is_the_per_edge_form_bit_for_bit(dev, D, dtypes,
+                                                        lists):
+    """The staged transposed SpMM, forced, gives the per-edge form's bits
+    (single and dual launches), its dual the bits of two single launches,
+    a rerun the same bits, and matches the plain version: on the square
+    graph (duplicate edges, empty rows, ELL width 40) and on rectangular
+    lists (V 100 rows over 200 or 50 sources, width 12), for x of width D
+    (f32, bf16, bf16 into f32) paired with dk's width 64 in f32."""
+    if lists == "square":
+        g = _graph().to(dev)
+        src, mask, Vs = g.ell_src, g.ell_mask, g.max_nodes
+    else:
+        Vs = 200 if lists == "more sources" else 50
+        src, mask = _rect_lists(dev, 100, Vs, 12, seed=29)
+    V, deg = src.shape
+    x1, x2 = _inputs(dev, V, D, 64, seed=30)
+    x1 = x1.to(dtypes[0])
+    w1 = bsp.masked_softmax(_inputs(dev, V, deg, seed=31)[0], mask)
+    w2 = torch.where(mask, _inputs(dev, V, deg, seed=32)[0], 0.0)
+    p1, p2 = (w1, x1, dtypes[1]), (w2, x2, torch.float32)
+
+    def run(form, pairs):
+        return bsp._run_spmm_t(_Uncounted, pairs, src, mask, Vs, None,
+                               form=form)
+
+    dual, per_edge = run("staged", (p1, p2)), run("per-edge", (p1, p2))
+    one, again = run("staged", (p1,))[0], run("staged", (p1,))[0]
+    two = run("staged", (p2,))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(dual[0], per_edge[0]) and torch.equal(dual[1],
+                                                             per_edge[1])
+    assert torch.equal(dual[0], one) and torch.equal(one, again)
+    assert torch.equal(dual[1], two)
+    _assert_kernel_close(dual[0], bsp.spmm_t_reference(w1, x1, src, mask, Vs,
+                                                       dtypes[1]))
+    torch.testing.assert_close(
+        dual[1], bsp.spmm_t_reference(w2, x2, src, mask, Vs), rtol=2e-5,
+        atol=2e-5 * deg ** 0.5)
+    unnamed = torch.ones(Vs, dtype=torch.bool, device=dev)
+    unnamed[src[mask].long()] = False
+    assert unnamed.any() and bool((dual[0][unnamed] == 0).all())
 
 
 # --- the fused forward's forms and the per-edge SDDMM on the edge cases ----
