@@ -122,11 +122,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    memory, and profiler breakdowns of device time by kernel, from which
    every path but the plain ones is checked for the kernel bodies it must
    run (``PATH_BODIES``, ``TRAIN_BODIES``);
-7. lifecycle (``phase_lifecycle``), on ``dynamic_swarm`` as above with
-   deterministic cuDNN: ``train.train`` for 4 steps with ``eval_every`` and
-   ``checkpoint_every`` 2 (evaluations of the preset's 64 eval scenes, 8
-   batches, at steps 2 and 4, the closing best record, ``config.json``,
-   checkpoints of steps 2 and 4, exact launches); a new ``train()`` on a
+7. lifecycle (``phase_lifecycle``), on ``dynamic_swarm`` as above (the
+   entry points pin deterministic cuDNN themselves): ``train.train`` for 4
+   steps with ``eval_every`` and ``checkpoint_every`` 2 (evaluations of
+   the preset's 64 eval scenes, 8 batches, at steps 2 and 4, the closing
+   best record, ``config.json``, checkpoints of steps 2 and 4, exact
+   launches); a new ``train()`` on a
    directory that holds only the step-2 checkpoint resumes at step 3, bit
    for bit equal to the straight run (losses, best eval, parameters);
    ``evaluate()`` of the restored checkpoint with the kernels against the
@@ -144,10 +145,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel as the Predictor does and giving its outputs (bit for bit, else
    depth within 1e-6 m and seg on 99.9% of the pixels); the attention
    artifact also in a fresh process that imports the op library and none
-   of the model code; a profile of the artifact's requests with the
-   path's kernel bodies (``PATH_BODIES``); the artifact's device-side
-   forward and whole request against the Predictor's in turns (CUDA
-   events);
+   of the model code and sets no numerics flag; a profile of the
+   artifact's requests with the path's kernel bodies (``PATH_BODIES``);
+   the artifact's device-side forward and whole request against the
+   Predictor's in turns (CUDA events);
 9. data (``phase_data``), on ``dynamic_swarm`` with the native renderer
    and graph builder: 3 batches placed on the card by ``train``'s
    producer thread read back equal to the host batches; the worker
@@ -156,6 +157,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    loader, the worker loader, augmentation and 8 scene folders written by
    ``export_scenes`` (npy), each with finite losses, its step times and
    the device's idle share over the loop;
+9b. numerics (``phase_numerics``), on ``dynamic_swarm`` at full width as
+   its CLI runs it (native host side, the attention path), with this
+   process in the worst caller state for the phase (TF32 on for cuBLAS and
+   cuDNN, cuDNN non-deterministic and benchmarking): ``train.train`` for 4
+   steps here; the train CLI in a fresh process that sets no flag for 2
+   steps with a checkpoint, then resumed to 4 in another: every step's
+   terms and the final parameters bit for bit the straight run's; the
+   straight run's checkpoint served here by ``Predictor`` and exported, and
+   a third fresh process that sets nothing serving the same requests from
+   the checkpoint and from the artifact, bit for bit this process's
+   Predictor (else within the export phase's tolerances, said); then,
+   outside the entry points, the Predictor's device-side batch and a train
+   step timed in turns under (a) the pin (TF32 off, cuDNN deterministic),
+   (b) TF32 off with cuDNN non-deterministic and (c) torch's defaults (cuDNN
+   TF32), with (c)'s depth and first-step loss-term deviation from (a); and
+   ``utils.debug.checked`` on the card: an attention step (forward and
+   backward) bit for bit the unchecked one, a NaN written into the fused
+   forward's value rows and one written by the backward's dual transposed
+   SpMM (unseen by the dispatcher) each raising FloatingPointError, an
+   out-of-range index into a plain gather and into the plain ops' model
+   raising IndexError, the card usable after, which thread dispatched the
+   backward's ops, the host syncs, and the checked step's time in turns
+   with the unchecked one;
 10. parallel (``phase_parallel``), on ``swarm_partitioned`` at full width
    (4 scenes x 64 robots in radius 4, 256 nodes over a graph axis of 8):
    8 ranks of this script (``--parallel-rank``), all on the one card and
@@ -231,11 +255,14 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 
 from mrp_gnn_tpu_torch import benchmark, train
 from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
@@ -253,6 +280,8 @@ from mrp_gnn_tpu_torch.ops import reference as R
 from mrp_gnn_tpu_torch.evaluate import evaluate
 from mrp_gnn_tpu_torch.serving import (Predictor, export_predictor,
                                        load_exported)
+from mrp_gnn_tpu_torch.utils.debug import checked
+from mrp_gnn_tpu_torch.utils.platform import reference_numerics
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
@@ -2560,18 +2589,16 @@ def _train_terms(records, steps) -> list:
 def phase_lifecycle(dev, tag: dict) -> dict:
     """A user's path around a run on ``dynamic_swarm``: train with periodic
     eval and checkpoints, resume, evaluate a checkpoint, serve from it,
-    benchmark. cuDNN is deterministic for the train, resume, eval and serve
-    steps (the port's kernels sum in a fixed order), so the resumed run is
-    held to the straight run bit for bit."""
+    benchmark. The entry points pin deterministic cuDNN and IEEE f32
+    (``utils.platform.reference_numerics``; the port's kernels sum in a
+    fixed order), so the resumed run is held to the straight run bit for
+    bit with no setting made here."""
     t_phase = time.perf_counter()
     cfg0 = swarm_config()
     m = cfg0.model
     h = m.num_fusion_layers * m.attention_heads
     eval_batches = cfg0.data.num_eval_scenes // cfg0.data.scenes_per_batch
     n_evals = LIFECYCLE_STEPS // 2
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     times = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         dirs = {k: os.path.join(tmp, k) for k in ("straight", "resumed",
@@ -2634,7 +2661,7 @@ def phase_lifecycle(dev, tag: dict) -> dict:
             raise AssertionError(f"resumed parameters differ: {diffs[:5]}")
         log(f"[lifecycle] resumed at step 3 in {times['resume_s']:.2f} s: "
             f"losses at steps 3 and 4, the best eval and every parameter "
-            "bit for bit equal to the straight run (cuDNN deterministic)")
+            "bit for bit equal to the straight run (the entry points' pin)")
 
         # 3. evaluate the checkpoint, kernels against the plain ops
         state = train.create_train_state(cfg, dev)
@@ -2692,7 +2719,6 @@ def phase_lifecycle(dev, tag: dict) -> dict:
                                  "or seg differs")
         log(f"[lifecycle] Predictor.from_checkpoint: depth within {err:.3e} m "
             f"(tol {TOL_CKPT_SERVE_M}) of the model in memory, seg equal")
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
     # 5. the benchmark's single-device benches, as a user runs them
     t0 = time.perf_counter()
@@ -2743,12 +2769,9 @@ def _outputs_agree(got: dict, want: dict, where: str) -> dict:
 _FRESH_PROCESS = """
 import json, sys
 import numpy as np
-import torch
 from mrp_gnn_tpu_torch.ops import bsp
 from mrp_gnn_tpu_torch.serving import load_exported
-torch.backends.cuda.matmul.allow_tf32 = False  # as in this script
-torch.backends.cudnn.allow_tf32 = False
-infer = load_exported(sys.argv[1])
+infer = load_exported(sys.argv[1])  # it pins the numerics itself
 images = np.load(sys.argv[2])
 bsp.reset_launches()
 outs = [infer(x) for x in images]
@@ -2994,6 +3017,432 @@ def phase_data(dev, tag: dict) -> dict:
                           "busy time over the whole profiled train() call "
                           "(device activity only) / its loop's host clock",
                 **tag}))
+    return res
+
+
+# --- the numerics phase: the pin at every entry point, and checked ----------
+
+NUMERICS_STEPS = 4     # the straight run; the CLI trains 2, then resumes to 4
+NUMERICS_REQUESTS = 3  # eval batches served in the fresh serving process
+NUMERICS_TIMEOUT_S = 600
+# The states timed against each other outside the entry points: (matmul
+# TF32, cuDNN TF32, cuDNN deterministic); benchmark off in all three.
+NUMERICS_STATES = {"a_pin": (False, False, True),
+                   "b_no_tf32": (False, False, False),
+                   "c_torch_defaults": (False, True, False)}
+_NUMERICS_SWITCHES = (("cuda", "matmul"), ("cudnn", "conv"), ("cudnn", "rnn"))
+
+_FRESH_SERVING = """
+import json, sys
+import numpy as np
+import torch
+from mrp_gnn_tpu_torch.config import get_config
+from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+from mrp_gnn_tpu_torch.serving import Predictor, load_exported
+ckpt, art, requests, out = sys.argv[1:5]
+b = torch.backends
+flags = {"matmul": b.cuda.matmul.fp32_precision,
+         "conv": b.cudnn.conv.fp32_precision,
+         "deterministic": b.cudnn.deterministic}  # torch's own: none set here
+cfg = get_config("dynamic_swarm")
+graph = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))["graph"]
+pred = Predictor.from_checkpoint(cfg, ckpt, graph=graph)
+infer = load_exported(art)
+images = np.load(requests)
+outs = {"predictor": [pred(x) for x in images],
+        "artifact": [infer(x) for x in images]}
+np.savez(out, **{f"{who}_{k}": np.stack([o[k] for o in outs[who]])
+                 for who in outs for k in ("depth", "seg")})
+print(json.dumps({"flags": flags}))
+"""
+
+
+def numerics_config(checkpoint_dir: str = ""):
+    """``dynamic_swarm`` as its CLI runs it (native host side), logging
+    every step, for NUMERICS_STEPS steps (the warmup's 100 steps make the
+    schedule the same for a run of 2)."""
+    cfg = get_config("dynamic_swarm")
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, steps=NUMERICS_STEPS, log_every=1,
+        checkpoint_dir=checkpoint_dir))
+
+
+def _numerics() -> tuple:
+    c = torch.backends.cudnn
+    return ((torch.get_float32_matmul_precision(),)
+            + tuple(getattr(getattr(torch.backends, b), op).fp32_precision
+                    for b, op in _NUMERICS_SWITCHES)
+            + (c.enabled, c.deterministic, c.benchmark))
+
+
+@contextlib.contextmanager
+def caller_numerics(matmul_tf32: bool, cudnn_tf32: bool,
+                    deterministic: bool, benchmark: bool):
+    """This process as a caller of the port sets itself: TF32 through the
+    legacy switches (as most programs set it), cuDNN's deterministic and
+    benchmark flags. On exit phase 1's settings (TF32 off) come back, and
+    are checked."""
+    saved = _numerics()
+    c = torch.backends.cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    c.deterministic, c.benchmark = deterministic, benchmark
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1
+        torch.backends.cudnn.allow_tf32 = False
+        c.deterministic, c.benchmark = saved[-2:]
+        if _numerics() != saved:
+            raise AssertionError(f"numerics {_numerics()} after the phase, "
+                                 f"{saved} before")
+
+
+def _spawn(args, tmp: str, name: str, procs: list) -> tuple:
+    """``python args`` in a fresh process, its output to ``tmp/name.log``;
+    the process joins ``procs``. Returns (process, log path)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    path = os.path.join(tmp, f"{name}.log")
+    with open(path, "w") as out:
+        procs.append(subprocess.Popen([sys.executable, *args], stdout=out,
+                                      stderr=subprocess.STDOUT, env=env,
+                                      cwd=tmp))
+    return procs[-1], path
+
+
+def _wait(proc, log_path: str, name: str) -> list:
+    """The lines of a fresh process's output; raises if it failed."""
+    try:
+        rc = proc.wait(timeout=NUMERICS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    if rc != 0:
+        raise AssertionError(f"the fresh process {name} exited {rc}:\n"
+                             + "\n".join(lines[-40:]))
+    return lines
+
+
+def _stop(procs: list) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _json_lines(lines) -> list:
+    return [json.loads(s) for s in lines if s.startswith("{")]
+
+
+def _poisoned(real, poison):
+    """A stand-in for the kernel wrapper ``real`` that lets ``poison`` write
+    into its inputs (``poison(args, None)``) and its output (``poison(args,
+    out)``) where the dispatcher does not see it, as a kernel launched
+    through ctypes writes."""
+
+    def wrapper(*args, **kw):
+        args = list(args)
+        with _disable_current_modes():
+            poison(args, None)
+        out = real(*args, **kw)
+        with _disable_current_modes():
+            poison(args, out)
+        return out
+
+    wrapper.launches = 0  # the launch counter the kernel's runner bumps
+    return wrapper
+
+
+def _expect_raise(exc, fn, where: str) -> str:
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    raise AssertionError(f"{where}: checked raised no {exc.__name__}")
+
+
+class _OpThreads(TorchDispatchMode):
+    """Which thread dispatched each op (the autograd engine runs a CUDA
+    backward on a device thread of its own)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((threading.get_ident(),
+                         func.overloadpacket.__name__))
+        return func(*args, **(kwargs or {}))
+
+
+def _host_syncs(fn) -> int:
+    """Host syncs in one call of ``fn``: the CUDA runtime's synchronising
+    calls in a profile of it (from every thread)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize", "cudaMemcpy"))
+
+
+def _check_checked(dev, cfg, batch, res: dict) -> tuple:
+    """``utils.debug.checked`` on the card: an attention step (forward and
+    backward) bit for bit the unchecked one; NaNs written by a kernel the
+    dispatcher sees (the fused forward, a custom op) and by one it does
+    not (the dual transposed SpMM of the backward, through ctypes) caught;
+    out-of-range indices turned into IndexError with the card still
+    usable; and which thread dispatched each op of a step (the engine runs
+    a CUDA backward on a thread of its own). Returns the unchecked and the
+    checked step."""
+    state = train.create_train_state(cfg, dev)
+    grad_fn = train.make_grad_fn(cfg, state.model)
+    run = checked(grad_fn)
+    with reference_numerics():
+        g0, t0 = grad_fn(*batch)
+        g1, t1 = run(*batch)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(g0, g1))
+                and all(torch.equal(t0[k], t1[k]) for k in t0)):
+            raise AssertionError("checked: the step's terms or gradients "
+                                 "differ from the unchecked step's")
+        graph = batch[3]
+        src = int(graph.ell_src[graph.ell_mask][0])
+
+        def nan_values(args, out):
+            if out is None:
+                args[2] = args[2].clone()
+                args[2][src, 0] = float("nan")
+
+        def nan_dvalues(args, out):
+            if out is not None:
+                out[0].view(-1)[0] = float("nan")
+
+        said = {}
+        for name, poison in (("fused_attention", nan_values),
+                             ("spmm_t2", nan_dvalues)):
+            real = getattr(bsp, name)
+            setattr(bsp, name, _poisoned(real, poison))
+            try:
+                said[name] = _expect_raise(FloatingPointError,
+                                           lambda: run(*batch),
+                                           f"a NaN from {name}")
+            finally:
+                setattr(bsp, name, real)
+        if "fused_attention" not in said["fused_attention"]:
+            raise AssertionError("the fused forward's NaN was not blamed on "
+                                 f"its op: {said['fused_attention']}")
+        v = torch.randn(graph.max_nodes, 64, device=dev)
+        bad = graph.ell_src.clone()
+        row, slot = (int(x) for x in graph.ell_mask.nonzero()[0])
+        bad[row, slot] = graph.max_nodes + 7  # a valid slot's neighbour
+        said["gather"] = _expect_raise(
+            IndexError, lambda: checked(lambda x, i: x[i])(v, bad),
+            "an out-of-range gather")
+        plain = _plain(cfg)
+        model = train.create_train_state(plain, dev).model.eval()
+        bad_graph = dataclasses.replace(graph, ell_src=bad)
+
+        def forward(g):
+            with torch.inference_mode():
+                return model(batch[0], g, ops_impl="xla")
+
+        said["plain_model"] = _expect_raise(
+            IndexError, lambda: checked(forward)(bad_graph),
+            "the plain ops on an out-of-range neighbour")
+        ok = checked(forward)(graph)  # the card goes on after the raises
+        g2, _ = run(*batch)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(g0, g2))
+                and all(np.isfinite(x.cpu().numpy()).all()
+                        for x in ok.values())):
+            raise AssertionError("checked: the card's later calls differ")
+        log(f"[numerics] checked raised: {json.dumps(said)}; then a checked "
+            "step on the card gave the same bits and a checked forward "
+            "finite outputs")
+        threads = _OpThreads()
+        with threads:
+            grad_fn(*batch)
+        main = threading.main_thread().ident
+        by_thread = {}
+        for ident, name in threads.ops:
+            by_thread.setdefault("main" if ident == main else "engine",
+                                 []).append(name)
+        if "convolution_backward" not in itertools.chain(*by_thread.values()):
+            raise AssertionError("the dispatch mode saw no backward op")
+    res["checked"] = {
+        "raised": said,
+        "ops_by_thread": {k: len(v) for k, v in by_thread.items()},
+        "backward_ops_by_thread": {
+            k: sum(n.endswith("_backward") for n in v)
+            for k, v in by_thread.items()}}
+    return grad_fn, run
+
+
+def _time_checked(grad_fn, run, batch, res: dict) -> None:
+    """The checked step's cost: host syncs (a profile's synchronising
+    CUDA runtime calls) and CUDA-event times of the unchecked and checked
+    steps in turns."""
+    with reference_numerics():
+        syncs = {"unchecked": _host_syncs(lambda: grad_fn(*batch)),
+                 "checked": _host_syncs(lambda: run(*batch))}
+        ms = {}
+        for who in ("unchecked", "checked", "checked", "unchecked"):
+            fn = grad_fn if who == "unchecked" else run
+            ms.setdefault(who, []).append(cuda_ms(lambda: fn(*batch), reps=5,
+                                                  inner=5, warmup=1))
+    res["checked"].update(host_syncs=syncs, ms=ms)
+
+
+def phase_numerics(dev, tag: dict) -> dict:
+    """The entry points' numerics against a hostile caller, on
+    ``dynamic_swarm`` at full width (native host side, the attention path).
+
+    This process is put in the worst caller state (TF32 on for cuBLAS and
+    cuDNN, cuDNN non-deterministic and benchmarking) for the phase. In it:
+    ``train.train`` for NUMERICS_STEPS steps; ``python -m
+    mrp_gnn_tpu_torch.train`` in a fresh process that sets no flag, for 2
+    steps with a checkpoint, then in another resumed to NUMERICS_STEPS:
+    every step's terms and the final parameters bit for bit the straight
+    run's. The straight run's checkpoint served by ``Predictor`` here, and
+    exported; a fresh process that sets nothing serves the same requests
+    from the checkpoint and from the artifact: bit for bit this process's
+    Predictor. Then, outside the entry points, the pin's cost and what it
+    buys: the Predictor's device-side batch and a train step timed in
+    turns under (a) the pin, (b) TF32 off and cuDNN non-deterministic and
+    (c) torch's defaults, and (c)'s deviation from (a); and
+    ``utils.debug.checked`` on the card (``_check_checked``)."""
+    t_phase = time.perf_counter()
+    res, procs = {}, []
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="chip_smoke_numerics_"))
+        stack.enter_context(caller_numerics(True, True, False, True))
+        stack.callback(_stop, procs)  # if the phase fails on the way
+        cli_dir, straight_dir = (os.path.join(tmp, d)
+                                 for d in ("cli", "straight"))
+        cli = ["-m", "mrp_gnn_tpu_torch.train", "--config", "dynamic_swarm",
+               "--log_every", "1", "--checkpoint_dir", cli_dir]
+        t0 = time.perf_counter()
+        first = _spawn(cli + ["--steps", "2"], tmp, "train_2", procs)
+        cfg = numerics_config(straight_dir)
+        state, records = train.train(cfg, device=dev)
+        straight_s = time.perf_counter() - t0
+        eval_it = iter(make_dataset(cfg.data, "eval", shuffle=False))
+        batches = [next(eval_it) for _ in range(NUMERICS_REQUESTS)]
+        pred = Predictor.from_checkpoint(cfg, straight_dir,
+                                         graph=batches[0]["graph"])
+        requests = np.stack([b["images"] for b in batches])
+        want = [pred(x) for x in requests]
+        art = os.path.join(tmp, "model.pt2")
+        export_predictor(pred, art)
+        req_path = os.path.join(tmp, "requests.npy")
+        got_path = os.path.join(tmp, "fresh_outputs.npz")
+        np.save(req_path, requests)
+        serving = _spawn(["-c", _FRESH_SERVING, straight_dir, art, req_path,
+                          got_path], tmp, "serving", procs)
+        lines = _wait(*first, "train_2")
+        second = _spawn(cli + ["--steps", str(NUMERICS_STEPS)], tmp,
+                        "train_resume", procs)
+        it = iter(make_dataset(cfg.data, "train"))
+        batch = train.batch_to_device(next(it), dev)
+        grad_fn, run = _check_checked(dev, cfg, batch, res)
+        cli_records = _json_lines(lines) + _json_lines(
+            _wait(*second, "train_resume"))
+        fresh_serving = _json_lines(_wait(*serving, "serving"))[-1]
+        fresh_s = time.perf_counter() - t0
+        steps = tuple(range(1, NUMERICS_STEPS + 1))
+        got, ref = _train_terms(cli_records, steps), _train_terms(records,
+                                                                 steps)
+        if got != ref:
+            raise AssertionError(f"the CLI in fresh processes {got}; the "
+                                 f"straight run here {ref}")
+        resumed = train.create_train_state(cfg, dev)
+        CheckpointManager(cli_dir).restore_latest(resumed)
+        diffs = [n for (n, a), (_, b) in zip(
+            state.model.named_parameters(), resumed.model.named_parameters())
+            if not torch.equal(a, b)]
+        if resumed.step != NUMERICS_STEPS or diffs:
+            raise AssertionError(f"the CLI's step-{resumed.step} parameters "
+                                 f"differ from the straight run's: "
+                                 f"{diffs[:5]}")
+        log(f"[numerics] train CLI in 2 fresh processes (2 steps, then "
+            f"resumed to {NUMERICS_STEPS}) bit for bit the straight run made "
+            "here under TF32 on, cuDNN non-deterministic and benchmarking: "
+            f"terms {json.dumps(ref)}, every parameter")
+        fresh = np.load(got_path)
+        serve_diffs = {}
+        for who in ("predictor", "artifact"):
+            serve_diffs[who] = [_outputs_agree(
+                {"depth": fresh[f"{who}_depth"][i],
+                 "seg": fresh[f"{who}_seg"][i]}, w,
+                f"the fresh process's {who}, request {i}")
+                for i, w in enumerate(want)]
+            if not all(d["bit_equal"] for d in serve_diffs[who]):
+                log(f"[numerics] the fresh process's {who} is within "
+                    f"TOL_EXPORT_* of this process's Predictor but not bit "
+                    f"for bit: {json.dumps(serve_diffs[who])}")
+        log(f"[numerics] a fresh process that sets no flag (torch's own: "
+            f"{json.dumps(fresh_serving['flags'])}) served "
+            f"{NUMERICS_REQUESTS} requests from the checkpoint and from the "
+            f"artifact: {json.dumps(serve_diffs)} against this process's "
+            "Predictor")
+        res.update(fresh_s=fresh_s, straight_s=straight_s,
+                   fresh_flags=fresh_serving["flags"], serving=serve_diffs)
+
+    # The pin's cost and what it buys, outside the entry points.
+    raw_step_state = train.create_train_state(cfg, dev)
+    raw_step = train.make_train_step(cfg, raw_step_state.model,
+                                     raw_step_state.optimizer).__wrapped__
+    images = torch.from_numpy(requests[0]).to(dev)
+
+    def raw_forward():
+        with torch.inference_mode():
+            return pred._forward(images)
+
+    first_terms, depth = {}, {}
+    for name in ("a_pin", "c_torch_defaults"):
+        with caller_numerics(*NUMERICS_STATES[name], False):
+            s = train.create_train_state(cfg, dev)
+            step = train.make_train_step(cfg, s.model, s.optimizer)
+            first_terms[name] = {k: float(v) for k, v in
+                                 step.__wrapped__(s, *batch)[1].items()}
+            depth[name] = raw_forward()["depth"].cpu().numpy()
+    a, c = first_terms["a_pin"], first_terms["c_torch_defaults"]
+    valid = batches[0]["graph"].node_mask.numpy()
+    deviation = {
+        "depth_max_abs_m": float(np.abs(depth["c_torch_defaults"][valid]
+                                        - depth["a_pin"][valid]).max()),
+        "first_step_terms_rel": {k: abs(c[k] - a[k]) / max(abs(a[k]), 1e-30)
+                                 for k in a}}
+    turns = {k: {"predictor_batch_ms": [], "train_step_ms": []}
+             for k in NUMERICS_STATES}
+    for name in ("a_pin", "b_no_tf32", "c_torch_defaults", "c_torch_defaults",
+                 "b_no_tf32", "a_pin"):
+        with caller_numerics(*NUMERICS_STATES[name], False):
+            turns[name]["predictor_batch_ms"].append(
+                cuda_ms(raw_forward, reps=5, inner=10, warmup=2))
+            turns[name]["train_step_ms"].append(
+                cuda_ms(lambda: raw_step(raw_step_state, *batch), reps=5,
+                        inner=10, warmup=3))
+    _time_checked(grad_fn, run, batch, res)
+    res.update(states=NUMERICS_STATES, ms=turns, deviation_c_vs_a=deviation,
+               phase_s=time.perf_counter() - t_phase)
+    log(json.dumps({"metric": "numerics", "config": cfg.name, **res,
+                    "timing": "CUDA events, median of 5 x 10 device-side "
+                              "Predictor forwards and of 5 x 10 train steps "
+                              "(make_train_step's step outside the pin), in "
+                              "turns a, b, c, c, b, a; states (matmul TF32, "
+                              "cuDNN TF32, cuDNN deterministic), benchmark "
+                              "off; checked: 5 x 5 grad steps (forward and "
+                              "backward, no update) in turns",
+                    **tag}))
     return res
 
 
@@ -4220,6 +4669,8 @@ def main() -> int:
         phase_export(dev, serve, {p: v[1] for p, v in paths.items()}, tag)
     with phase("data"):
         phase_data(dev, tag)
+    with phase("numerics"):
+        phase_numerics(dev, tag)
     with phase("parallel"):
         phase_parallel(dev, tag)
     with phase("model axis"):

@@ -13,6 +13,9 @@ kernel in (``ops/edge.with_block_kernel``), so that it times a kernel. The
 fusion and training-edge records also carry ``launches``: the kernel
 launches of the route's timing, by wrapper (``ops/bsp.launch_counts``).
 
+Every bench runs under ``utils.platform.reference_numerics`` (IEEE f32,
+deterministic cuDNN), the numerics that the entry points give users.
+
 Timing chains ``inner`` data-dependent applications between two CUDA
 events (host clock on the CPU), best of ``reps``, after a warm call that
 also builds the kernels. Numbers describe one process: steps drift
@@ -41,7 +44,8 @@ import numpy as np
 import torch
 
 from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
-from mrp_gnn_tpu_torch.utils.platform import resolve_device
+from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
+                                              resolve_device)
 
 # The probes of the machine's ceilings (_probe_ceilings): a bf16 matmul of
 # PROBE_MM^3, as the JAX package's; a permuted copy of PROBE_D-wide bf16 rows
@@ -114,6 +118,7 @@ def _timed_route(body, x0, inner) -> tuple:
     return sec, {k: after[k] - before[k] for k in after if after[k] > before[k]}
 
 
+@reference_numerics()
 def bench_fusion(nodes=8192, feature_dim=2048, attention_dim=64,
                  robots=8, inner=50,
                  paths=("xla_scatter", "xla_ell", "pallas_ell",
@@ -163,6 +168,7 @@ def bench_fusion(nodes=8192, feature_dim=2048, attention_dim=64,
     return out
 
 
+@reference_numerics()
 def bench_train_edge(nodes=8192, feature_dim=2048, attention_dim=64,
                      robots=8, inner=20, paths=("xla_ell", "pallas_ell"),
                      device=None) -> list:
@@ -212,6 +218,7 @@ def _train_setup(cfg: ExperimentConfig, device):
     return batch, state, step_fn, batch_to_device(batch, device)
 
 
+@reference_numerics()
 def bench_train(config="five_robot_attention", inner=20, device=None) -> list:
     """Train-step time (forward, loss, backward, update) of a preset (a
     name, or an ExperimentConfig) on its first train batch, after a warm
@@ -289,6 +296,7 @@ def _flops(fn, *args) -> float | None:
     return float(counter.get_total_flops()) or None
 
 
+@reference_numerics()
 def bench_mfu(config="five_robot_attention", inner=20,
               encoder_channels=None, device=None) -> list:
     """Train-step accounting against the machine, stage by stage (encoder,
@@ -452,6 +460,7 @@ def _share(obj, rank: int):
     return box[0]
 
 
+@reference_numerics()
 def bench_scaling(max_devices=None, robots=8, scenes_per_shard=16,
                   feature_dim=2048, inner=30, topology="full",
                   exchange="boundary", device=None) -> list:
@@ -590,6 +599,7 @@ def profile_window(fn, device) -> dict:
             "compute_ms": total}
 
 
+@reference_numerics()
 def bench_overlap(devices=None, feature_dim=4096, inner=30,
                   topology="radius", device=None) -> list:
     """Overlap of the boundary exchange with the local aggregate, over the

@@ -4,7 +4,9 @@
 Depth RMSE / AbsRel / delta accuracies and seg mIoU over the eval split,
 the JAX package's output keys. The model runs in eval mode under
 ``torch.inference_mode()`` on its own device with the config's
-``ops_impl``, so on the CUDA card the fusion layer runs the kernels. The
+``ops_impl``, so on the CUDA card the fusion layer runs the kernels, and
+under ``utils.platform.reference_numerics`` (IEEE f32, deterministic
+cuDNN). The
 metric sums stay on the device and are read back once, at the end.
 
 With a ``ParallelContext`` (``pctx``; every rank calls ``evaluate``) each
@@ -36,9 +38,11 @@ from mrp_gnn_tpu_torch.models.fusion import GraphFusionLayer
 from mrp_gnn_tpu_torch.train import (add_multihost_args, batch_to_device,
                                      create_train_state, init_multihost,
                                      make_parallel)
-from mrp_gnn_tpu_torch.utils.platform import resolve_device
+from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
+                                              resolve_device)
 
 
+@reference_numerics()
 def evaluate(cfg: ExperimentConfig, model: torch.nn.Module, pctx=None,
              dump_dir: str | None = None) -> dict:
     """Run the eval split (in order; the final partial batch padded and

@@ -35,7 +35,8 @@ from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.graph import (GraphBatch, batch_homogeneous,
                                      scene_edges_for)
 from mrp_gnn_tpu_torch.ops.dispatch import resolve_impl
-from mrp_gnn_tpu_torch.utils.platform import resolve_device
+from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
+                                              resolve_device)
 
 PLATFORMS = ("cpu", "cuda")  # the device types an artifact may run on
 
@@ -90,10 +91,12 @@ class Predictor:
         self._forward = _Forward(self.model, self.graph,
                                  resolve_impl(self.ops_impl, self.device))
 
+    @reference_numerics()
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> dict:
         """Device-side forward on a tensor already on ``self.device``;
-        returns device tensors, without synchronising."""
+        returns device tensors, without synchronising. Runs under
+        ``reference_numerics``, as every serving call does."""
         return self._forward(images)
 
     def __call__(self, images) -> dict:
@@ -243,8 +246,10 @@ def load_exported(path: str, device=None):
     the CUDA card; raises without one). Needs the op library, not the model
     code. Returns ``callable(images) -> {"depth", "seg"}`` of numpy arrays,
     as :meth:`Predictor.__call__`, which raises ValueError on images of
-    another shape than the exported one. The callable carries the
-    program's ``module`` (the device-side forward) and its
+    another shape than the exported one, and runs the program under
+    ``reference_numerics`` (an artifact's numbers follow the loading
+    process's settings). The callable carries the program's ``module``
+    (the raw device-side forward, under the caller's settings) and its
     ``input_shape``."""
     from torch.export.passes import move_to_device_pass
 
@@ -268,7 +273,7 @@ def load_exported(path: str, device=None):
         if tuple(images.shape) != shape:
             raise ValueError(f"expected images {shape}, got "
                              f"{tuple(images.shape)}")
-        with torch.inference_mode():
+        with reference_numerics(), torch.inference_mode():
             out = module(images.to(device, torch.float32))
         return {k: v.cpu().numpy() for k, v in out.items()}
 

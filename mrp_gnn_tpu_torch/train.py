@@ -69,7 +69,8 @@ from torch.utils.checkpoint import checkpoint
 from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.losses import total_loss
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
-from mrp_gnn_tpu_torch.utils.platform import resolve_device
+from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
+                                              resolve_device)
 
 
 def warmup_cosine_lr(cfg: ExperimentConfig, count: int) -> float:
@@ -251,11 +252,17 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
     run beside the halo exchange's own collectives in the backward), so
     every rank applies the same update to what it holds; the clip norm is
     the whole gradient's (:func:`global_norm`).
+
+    The step (forward, backward and update) runs under
+    ``utils.platform.reference_numerics``: IEEE f32 matmuls and
+    convolutions and deterministic cuDNN, whatever the caller has set.
+    :func:`make_grad_fn` is the raw piece, under the caller's settings.
     """
     grad_fn = make_grad_fn(cfg, model, pctx)
     params = list(model.parameters())
     mesh = pctx.mesh if pctx is not None else None
 
+    @reference_numerics()
     def train_step(state: TrainState, images, depth, seg, graph):
         model.train()
         grads, terms = grad_fn(images, depth, seg, graph)

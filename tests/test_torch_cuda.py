@@ -988,23 +988,13 @@ def test_softmax_forms_at_any_width(dev, deg, offset):
                        ell.run_softmax(_Uncounted, x, mask, form=rule))
 
 
-@pytest.fixture
-def deterministic_cudnn():
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    yield
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
-
-
-@pytest.mark.usefixtures("deterministic_cudnn")
 def test_resume_and_from_checkpoint_on_the_card(dev, tmp_path):
     """The small dynamic_swarm of tests/torch_small.py on the card, through
     the kernels: 4 straight steps against 2, a checkpoint, a new train()
-    and 2 more, bit for bit with deterministic cuDNN (the port's kernels
-    sum in a fixed order); then Predictor.from_checkpoint gives the
-    in-memory model's outputs bit for bit, launching the fused attention."""
+    and 2 more, bit for bit with no cuDNN setting made here (the entry
+    points pin deterministic cuDNN; the port's kernels sum in a fixed
+    order); then Predictor.from_checkpoint gives the in-memory model's
+    outputs bit for bit, launching the fused attention."""
     from mrp_gnn_tpu_torch import train as TT
     from mrp_gnn_tpu_torch.config import get_config
     from mrp_gnn_tpu_torch.data.pipeline import make_dataset
@@ -1102,3 +1092,149 @@ def test_placed_batches_equal_the_host_batches(dev):
         it.close()
         static = name == "multitask_batched"
         assert (graphs[0] is graphs[2]) == static
+
+
+@pytest.fixture
+def tf32_caller(dev):
+    """This process as a careless caller sets itself: TF32 on for cuBLAS and
+    cuDNN (the legacy switches), cuDNN non-deterministic and benchmarking;
+    the dev fixture's settings come back after the test."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+_SERVING_MAIN = """
+import json, sys
+import numpy as np
+from mrp_gnn_tpu_torch.serving import load_exported, main
+ckpt, art, images, out = sys.argv[1:5]
+main(["--config", "dynamic_swarm", "--checkpoint_dir", ckpt, "--export", art])
+infer = load_exported(art)
+got = [infer(x) for x in np.load(images)]
+np.savez(out, depth=np.stack([g["depth"] for g in got]),
+         seg=np.stack([g["seg"] for g in got]))
+"""
+
+
+@pytest.mark.usefixtures("tf32_caller")
+def test_serving_main_in_a_fresh_process_is_the_predictor(dev, tmp_path):
+    """``serving.main``'s path (``Predictor.from_checkpoint`` on the
+    preset's serving graph, ``--export``) in a fresh process that sets no
+    flag, then its artifact's requests: bit for bit the Predictor of this
+    process, which has TF32 on and cuDNN non-deterministic. Both pin their
+    numerics (``utils.platform.reference_numerics``)."""
+    import os
+    import subprocess
+    import sys
+    from mrp_gnn_tpu_torch import train as TT
+    from mrp_gnn_tpu_torch.checkpoint import CheckpointManager
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+    from mrp_gnn_tpu_torch.serving import Predictor
+    cfg = get_config("dynamic_swarm")
+    ckpt = str(tmp_path / "ckpt")
+    CheckpointManager(ckpt).save(0, TT.create_train_state(cfg, dev))
+    it = iter(make_dataset(cfg.data, "eval", shuffle=False))
+    images = np.stack([next(it)["images"] for _ in range(2)])
+    np.save(tmp_path / "images.npy", images)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVING_MAIN, ckpt, str(tmp_path / "a.pt2"),
+         str(tmp_path / "images.npy"), str(tmp_path / "out.npz")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = np.load(tmp_path / "out.npz")
+    pred = Predictor.from_checkpoint(cfg, ckpt)
+    for i, x in enumerate(images):
+        want = pred(x)
+        for k in ("depth", "seg"):
+            np.testing.assert_array_equal(got[k][i], want[k])
+
+
+@pytest.mark.usefixtures("tf32_caller")
+def test_the_predictor_pins_its_numerics_on_the_card(dev):
+    """Under a caller's TF32, the Predictor's convolutions run in IEEE f32
+    with deterministic cuDNN (read from a hook on the first convolution),
+    and its outputs are those it gives a caller with TF32 off."""
+    from mrp_gnn_tpu_torch import train as TT
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import make_dataset
+    from mrp_gnn_tpu_torch.models.encoder import Conv
+    from mrp_gnn_tpu_torch.serving import Predictor
+    from torch_small import small
+    cfg = small(get_config("dynamic_swarm"), impl="auto")
+    batch = next(iter(make_dataset(cfg.data, "eval", shuffle=False)))
+    pred = Predictor(cfg, TT.create_train_state(cfg, dev).model,
+                     graph=batch["graph"])
+    seen = []
+    conv = next(m for m in pred.model.modules() if isinstance(m, Conv))
+    conv.register_forward_pre_hook(lambda *_: seen.append((
+        torch.backends.cudnn.conv.fp32_precision,
+        torch.backends.cuda.matmul.fp32_precision,
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)))
+    hostile = pred(batch["images"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    careful = pred(batch["images"])
+    assert seen == [("ieee", "ieee", True, False)] * 2
+    for k in ("depth", "seg"):
+        np.testing.assert_array_equal(hostile[k], careful[k])
+
+
+def test_checked_on_the_card(dev):
+    """``utils.debug.checked`` on the card: a small attention step through
+    the kernels, forward and backward, bit for bit the unchecked step; a NaN
+    that the dual transposed SpMM (launched through ctypes in the backward,
+    unseen by the dispatcher) writes is caught at the op that reads it; an
+    out-of-range gather raises IndexError before any kernel runs it; the
+    card then goes on."""
+    from mrp_gnn_tpu_torch import train as TT
+    from mrp_gnn_tpu_torch.config import get_config
+    from mrp_gnn_tpu_torch.data.pipeline import make_train_iterator
+    from mrp_gnn_tpu_torch.utils.debug import checked
+    from mrp_gnn_tpu_torch.utils.platform import reference_numerics
+    from torch.utils._python_dispatch import _disable_current_modes
+    from torch_small import small
+    cfg = small(get_config("dynamic_swarm"), impl="auto")
+    batch = TT.batch_to_device(next(make_train_iterator(cfg.data)), dev)
+    grad_fn = TT.make_grad_fn(cfg, TT.create_train_state(cfg, dev).model)
+    with reference_numerics():
+        g0, t0 = grad_fn(*batch)
+        before = bsp.launch_counts()
+        g1, t1 = checked(grad_fn)(*batch)
+        assert bsp.launch_counts()["bsp_spmm_t2"] == before["bsp_spmm_t2"] + 1
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+        assert all(torch.equal(t0[k], t1[k]) for k in t0)
+        real = bsp.spmm_t2
+
+        def nan_dvalues(*args, **kw):
+            out = real(*args, **kw)
+            with _disable_current_modes():
+                out[0].view(-1)[0] = float("nan")
+            return out
+
+        nan_dvalues.launches = 0
+        bsp.spmm_t2 = nan_dvalues
+        try:
+            with pytest.raises(FloatingPointError):
+                checked(grad_fn)(*batch)
+        finally:
+            bsp.spmm_t2 = real
+        v = torch.ones(batch[3].max_nodes, 8, device=dev)
+        bad = batch[3].ell_src.clone()
+        bad[0, 0] = batch[3].max_nodes
+        with pytest.raises(IndexError):
+            checked(lambda x, i: x[i])(v, bad)
+        g2, _ = checked(grad_fn)(*batch)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(g0, g2))
