@@ -1,0 +1,19 @@
+"""The fusion layer's least forward time over its device time (CUDA events
+at ``GraphFusionLayer``'s forward boundary), summed over the window's
+requests. Layer: fusion + kernels. Moves ``serve_p95_ms``."""
+
+from perfbench import work
+
+UNIT = "%"
+
+
+def read(rec: dict):
+    if rec["mode"] != "serve":
+        return None
+    fwd = rec["device_ms"].get("fusion", [])
+    if not fwd or len(fwd) != len(rec["edges"]) - rec["failed"]:
+        return None
+    least = sum(work.least_seconds(*work.fusion_work(
+        rec["model"], rec["num_nodes"], e, backward=False))
+        for e in rec["edges"][:len(fwd)])
+    return work.share_pct(least, sum(fwd) / 1e3)
