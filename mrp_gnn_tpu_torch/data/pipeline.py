@@ -42,6 +42,7 @@ from mrp_gnn_tpu_torch.data.synthetic import (SceneSpec, generate_scene,
 from mrp_gnn_tpu_torch.graph import (batch_from_positions,
                                      batch_fully_connected, batch_homogeneous,
                                      scene_edges_for)
+from mrp_gnn_tpu_torch.utils import profiling
 
 
 class SceneDataset:
@@ -257,37 +258,40 @@ class BatchIterator:
         if (not self.drop_remainder and tail < len(order)
                 and tail >= skip * self.bs):
             starts.append(tail)  # partial final batch (padded + masked)
-        if self.node_range is not None and tuple(self.node_range) != (
-                0, self.max_nodes):
-            for start in starts:
-                yield self._local_batch(order[start:start + self.bs], epoch)
-            return
+        local = self.node_range is not None and tuple(self.node_range) != (
+            0, self.max_nodes)
         for start in starts:
             idxs = order[start:start + self.bs]
-            scenes = [self.ds[int(i)] for i in idxs]
-            if self.augment:
-                scenes = [augment_scene(s, _augment_rng(self.seed, epoch,
-                                                        int(i)))
-                          for s, i in zip(scenes, idxs)]
-            if self._dynamic:
+            with profiling.span("data.batch"):
+                batch = (self._local_batch(idxs, epoch) if local
+                         else self._batch(idxs, epoch))
+            yield batch
+
+    def _batch(self, idxs, epoch: int) -> dict:
+        scenes = [self.ds[int(i)] for i in idxs]
+        if self.augment:
+            scenes = [augment_scene(s, _augment_rng(self.seed, epoch, int(i)))
+                      for s, i in zip(scenes, idxs)]
+        if self._dynamic:
+            with profiling.span("data.graph"):
                 graph = self._graph_builder([s["positions"] for s in scenes])
-            else:
-                graph = self.graph
-                if len(scenes) < self.bs:
-                    # same static shapes, node_mask False on missing scenes
-                    graph = batch_homogeneous(
-                        len(scenes), self.ds.cfg.num_robots,
-                        self._scene_edges, max_nodes=self.max_nodes,
-                        max_edges=self.graph.max_edges)
-            images = np.concatenate([s["images"] for s in scenes])
-            depth = np.concatenate([s["depth"] for s in scenes])
-            seg = np.concatenate([s["seg"] for s in scenes])
-            yield {
-                "images": _pad_nodes(images, self.max_nodes),
-                "depth": _pad_nodes(depth, self.max_nodes),
-                "seg": _pad_nodes(seg, self.max_nodes),
-                "graph": graph,
-            }
+        else:
+            graph = self.graph
+            if len(scenes) < self.bs:
+                # same static shapes, node_mask False on missing scenes
+                graph = batch_homogeneous(
+                    len(scenes), self.ds.cfg.num_robots,
+                    self._scene_edges, max_nodes=self.max_nodes,
+                    max_edges=self.graph.max_edges)
+        images = np.concatenate([s["images"] for s in scenes])
+        depth = np.concatenate([s["depth"] for s in scenes])
+        seg = np.concatenate([s["seg"] for s in scenes])
+        return {
+            "images": _pad_nodes(images, self.max_nodes),
+            "depth": _pad_nodes(depth, self.max_nodes),
+            "seg": _pad_nodes(seg, self.max_nodes),
+            "graph": graph,
+        }
 
     def _local_batch(self, idxs, epoch: int) -> dict:
         """The rows [lo, hi) of one batch: renders only the scenes that meet
@@ -321,7 +325,8 @@ class BatchIterator:
                     pos = (-pos[::-1]).copy()
                 positions.append(pos)
         if self._dynamic:
-            graph = self._graph_builder(positions)
+            with profiling.span("data.graph"):
+                graph = self._graph_builder(positions)
         else:
             graph = self.graph
             if len(idxs) < self.bs:
@@ -391,7 +396,10 @@ class TransformIterator:
 
     def __next__(self):
         if self._done is None:
-            item = self._q.get()
+            with profiling.span("data.take"):
+                if profiling.enabled() and self._q.empty():
+                    profiling.count("data.starved")
+                item = self._q.get()
             if not isinstance(item, BaseException):
                 self._last_state, batch = item
                 return batch

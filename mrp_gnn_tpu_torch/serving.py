@@ -35,6 +35,7 @@ from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.graph import (GraphBatch, batch_homogeneous,
                                      scene_edges_for)
 from mrp_gnn_tpu_torch.ops.dispatch import resolve_impl
+from mrp_gnn_tpu_torch.utils import profiling
 from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
                                               resolve_device)
 
@@ -100,13 +101,21 @@ class Predictor:
         return self._forward(images)
 
     def __call__(self, images) -> dict:
-        if not torch.is_tensor(images):
-            images = torch.from_numpy(np.asarray(images, np.float32))
-        if tuple(images.shape) != self.input_shape:
-            raise ValueError(f"expected images {self.input_shape}, "
-                             f"got {tuple(images.shape)}")
-        images = images.to(self.device, torch.float32)
-        return {k: v.cpu().numpy() for k, v in self.forward(images).items()}
+        with profiling.span("serve.request"):
+            with profiling.span("serve.copy_in"):
+                if not torch.is_tensor(images):
+                    images = torch.from_numpy(np.asarray(images, np.float32))
+                if tuple(images.shape) != self.input_shape:
+                    raise ValueError(f"expected images {self.input_shape}, "
+                                     f"got {tuple(images.shape)}")
+                images = images.to(self.device, torch.float32)
+            with profiling.span("serve.forward", device=True) as fwd:
+                out = self.forward(images)
+            # with the recorder on, the copy out then times the copy alone
+            with profiling.span("serve.wait"):
+                fwd.wait()
+            with profiling.span("serve.copy_out"):
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
     def predict_scenes(self, scene_images) -> list:
         """Any number of scenes, chunked and padded to the fixed batch shape.

@@ -69,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.losses import total_loss
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
+from mrp_gnn_tpu_torch.utils import profiling
 from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
                                               resolve_device)
 
@@ -184,17 +185,19 @@ def make_grad_fn(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
         return model(images, graph, ops_impl=ops_impl, shard=shard)
 
     def grads_of(images, depth, seg, graph):
-        if tr.remat:
-            # Recompute the forward in the backward instead of holding
-            # every feature map (the JAX package's jax.checkpoint).
-            out = checkpoint(forward, images, graph, use_reentrant=False)
-        else:
-            out = forward(images, graph)
-        loss, terms = total_loss(out, {"depth": depth, "seg": seg},
-                                 graph.node_mask, tr.depth_loss_weight,
-                                 tr.seg_loss_weight, depth_loss=tr.depth_loss,
-                                 mesh=mesh)
-        grads = torch.autograd.grad(loss, params)
+        with profiling.span("train.forward"):
+            if tr.remat:
+                # Recompute the forward in the backward instead of holding
+                # every feature map (the JAX package's jax.checkpoint).
+                out = checkpoint(forward, images, graph, use_reentrant=False)
+            else:
+                out = forward(images, graph)
+            loss, terms = total_loss(out, {"depth": depth, "seg": seg},
+                                     graph.node_mask, tr.depth_loss_weight,
+                                     tr.seg_loss_weight,
+                                     depth_loss=tr.depth_loss, mesh=mesh)
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
         return grads, {k: v.detach() for k, v in terms.items()}
 
     def grads(images, depth, seg, graph):
@@ -264,13 +267,16 @@ def make_train_step(cfg: ExperimentConfig, model: MultiRobotPerceptionNet,
 
     @reference_numerics()
     def train_step(state: TrainState, images, depth, seg, graph):
-        model.train()
-        grads, terms = grad_fn(images, depth, seg, graph)
-        terms["grad_norm"] = (
-            optimizer.step(grads) if mesh is None
-            else optimizer.step(grads, global_norm(grads, params, mesh)))
-        state.step += 1
-        return state, terms
+        with profiling.span("train.step"):
+            model.train()
+            grads, terms = grad_fn(images, depth, seg, graph)
+            with profiling.span("train.update"):
+                terms["grad_norm"] = (
+                    optimizer.step(grads) if mesh is None
+                    else optimizer.step(grads,
+                                        global_norm(grads, params, mesh)))
+            state.step += 1
+            return state, terms
 
     return train_step
 
@@ -389,18 +395,20 @@ class BatchPlacer:
         return d
 
     def __call__(self, batch: dict) -> dict:
-        if not self.cuda:
-            return batch
-        with torch.cuda.stream(self.copy_stream):
-            arrays = [self._put(torch.from_numpy(np.asarray(batch[k])))
-                      for k in ("images", "depth", "seg")]
-            host, dev = self._graph
-            if batch["graph"] is not host:
-                host, dev = batch["graph"], batch["graph"].apply(self._put)
-                self._graph = (host, dev)
-            ready = torch.cuda.Event()
-            ready.record(self.copy_stream)
-        return {**batch, "_placed": (*arrays, dev), "_ready": ready}
+        with profiling.span("data.place"):
+            if not self.cuda:
+                return batch
+            with torch.cuda.stream(self.copy_stream):
+                arrays = [self._put(torch.from_numpy(np.asarray(batch[k])))
+                          for k in ("images", "depth", "seg")]
+                host, dev = self._graph
+                if batch["graph"] is not host:
+                    host, dev = batch["graph"], batch["graph"].apply(
+                        self._put)
+                    self._graph = (host, dev)
+                ready = torch.cuda.Event()
+                ready.record(self.copy_stream)
+            return {**batch, "_placed": (*arrays, dev), "_ready": ready}
 
 
 def batch_to_device(batch: dict, device) -> tuple:

@@ -1,7 +1,6 @@
 """The port's debug and profiling utilities, on CPU: ``validate_graph``
 passes on built batches and raises on each broken invariant (with the JAX
-package's messages), the anomaly-mode switch, ``trace`` writes a trace,
-``StepTimer`` records."""
+package's messages), the anomaly-mode switch, ``trace`` writes a trace."""
 
 import dataclasses
 import os
@@ -91,12 +90,3 @@ def test_trace_writes_a_trace(tmp_path):
     files = os.listdir(logdir)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     assert os.path.getsize(os.path.join(logdir, files[0])) > 0
-
-
-def test_step_timer_records():
-    t = profiling.StepTimer()
-    for step in (1, 2):
-        t.start()
-        rec = t.stop(step=step)
-        assert rec["step"] == step and rec["step_time_s"] >= 0.0
-    assert [r["step"] for r in t.records] == [1, 2]
