@@ -82,7 +82,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    train batches and at ELL width 128 (dk 200): within tolerance of the
    plain versions, masked slots and empty rows 0, rows summing to 1,
    reruns bit for bit, the weights' rows form's logits bit for bit against
-   the per-edge SDDMM, the wrappers against their rule's form;
+   the per-edge SDDMM, the wrappers against their rule's form; the clip +
+   AdamW kernels (``ops/adamw.py``) against the loop (``AdamW.loop_step``)
+   at the training cells' 52 leaves (the convolutions' gradients
+   channels-last, as cuDNN gives them), with and without clipping: updates
+   bit for bit given the loop's norm, the norm kernel within 1e-6 relative
+   and bit for bit on reruns, exact launch counts;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -114,7 +119,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16) and both forms of the single SDDMM at the ell path's logits
    (``sddmm_ab``); both forms of the SpMM in turns at the ell path's
    batch (f32 and bf16), the mean and bsp2 forwards and dq's shape (D 64)
-   (``spmm_form_ab``, the rule's crossover); the Predictor's device-
+   (``spmm_form_ab``, the rule's crossover); the fused optimizer step
+   against the loop at the 52 leaves (device time, launches and the
+   host's issue time per step); the Predictor's device-
    side batch latency and whole-request latency; the train step's device
    time with the kernels and with the plain ops, one whole step through
    ``train()`` (host clock, data included; numpy renderer on the attention
@@ -275,7 +282,7 @@ from mrp_gnn_tpu_torch.data.pipeline import (TransformIterator, make_dataset,
 from mrp_gnn_tpu_torch.graph import batch_fully_connected, build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
 from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
-from mrp_gnn_tpu_torch.ops import _build, bsp, edge, ell
+from mrp_gnn_tpu_torch.ops import _build, adamw, bsp, edge, ell
 from mrp_gnn_tpu_torch.ops import reference as R
 from mrp_gnn_tpu_torch.evaluate import evaluate
 from mrp_gnn_tpu_torch.serving import (Predictor, export_predictor,
@@ -722,6 +729,211 @@ def phase_train_kernels(dev) -> dict:
         check_backward_kernels(xc, f"crafted D {D_c}")
         check_function_grads(xc, f"crafted D {D_c}")
     return {"inputs": x, "errs": errs}
+
+
+# The optimizer's checks: seeded gradients of these global norms (the
+# clip norm is 1.0: the first clips, the second does not).
+OPTIM_NORMS = {"clip": 40.0, "no_clip": 0.3}
+OPTIM_STEPS = 3
+# The optimizer's launches per train step: the norm and the update on one
+# process; the update alone where the step is given the mesh's norm.
+OPTIM_PER_STEP = {"adamw_grad_norm": 1, "adamw_update": 1}
+OPTIM_PER_MESH_STEP = {"adamw_update": 1}
+
+
+class LoopAdamW(train.AdamW):
+    """``train.AdamW`` whose step is the loop on every device
+    (``AdamW.loop_step``): the plain version of a train step's update."""
+    step = train.AdamW.loop_step
+
+
+def plain_optimizer(cfg, params) -> LoopAdamW:
+    """``train.make_optimizer``'s AdamW with the loop for its step."""
+    return LoopAdamW(params, lambda count: train.warmup_cosine_lr(cfg, count),
+                     max_norm=cfg.train.grad_clip_norm,
+                     weight_decay=cfg.train.weight_decay)
+
+
+def optimizer_pair(dev) -> tuple:
+    """Two AdamW of the training cells' config (dynamic_swarm; dense_swarm
+    runs the same model) over equal copies of its 52 seeded leaves on the
+    card, with lr above 0 from the first update."""
+    cfg = swarm_config()
+    model = MultiRobotPerceptionNet(
+        cfg.model, generator=torch.Generator().manual_seed(0))
+    leaves = [p.detach().to(dev) for p in model.parameters()]
+    return tuple(train.AdamW([p.clone() for p in leaves],
+                             lambda c: 1e-3 * (c + 1),
+                             max_norm=cfg.train.grad_clip_norm,
+                             weight_decay=cfg.train.weight_decay)
+                 for _ in range(2))
+
+
+def optimizer_grads(params, norm: float, seed: int) -> list:
+    """Seeded gradients of global norm about ``norm``, the 4-D ones stored
+    channels-last, as cuDNN gives the convolutions' weight gradients over
+    the network's NHWC input."""
+    rng = np.random.default_rng(seed)
+    total = sum(p.numel() for p in params)
+    return [g.contiguous(memory_format=torch.channels_last) if g.dim() == 4
+            else g for g in (
+                torch.from_numpy((rng.normal(size=tuple(p.shape)) * norm
+                                  / np.sqrt(total)).astype(np.float32)).to(
+                    p.device) for p in params)]
+
+
+def loop_norm(grads) -> torch.Tensor:
+    """The loop's norm (train.AdamW.loop_step)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def phase_optimizer_kernels(dev) -> dict:
+    """The clip + AdamW kernels (ops/adamw.py) against the loop
+    (``AdamW.loop_step``) at the training cells' 52 leaves: for a norm
+    that clips and one that does not, 3 updates bit for bit the loop's
+    given the loop's norm (one launch each); the norm kernel within 1e-6
+    relative of the loop's and bit for bit on 5 reruns; 3 whole steps (2
+    launches each) within 1e-6 relative of the loop's norm and, where
+    nothing clips, bit for bit."""
+    out = {}
+    for case, norm in OPTIM_NORMS.items():
+        kernel, loop = optimizer_pair(dev)
+        params = kernel.params
+        for i in range(OPTIM_STEPS):
+            g = optimizer_grads(params, norm, i)
+            want = loop_norm(g)
+            before = adamw.adamw_update.launches, adamw.grad_norm.launches
+            kernel.step(g, want.clone())
+            loop.loop_step(g, want)
+            torch.cuda.synchronize()
+            if (adamw.adamw_update.launches - before[0],
+                    adamw.grad_norm.launches - before[1]) != (1, 0):
+                raise AssertionError("a given norm must launch the update "
+                                     "alone")
+            if (float(want) >= 1.0) != (case == "clip"):
+                raise AssertionError(f"{case}: norm {float(want)}")
+            for name, xs, ys in (("p", kernel.params, loop.params),
+                                 ("mu", kernel.mu, loop.mu),
+                                 ("nu", kernel.nu, loop.nu)):
+                bad = [j for j, (x, y) in enumerate(zip(xs, ys))
+                       if not torch.equal(x, y)]
+                if bad:
+                    raise AssertionError(f"adamw {case} update {i}: {name} of "
+                                         f"leaves {bad} differ from the loop")
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        norms = [adamw.grad_norm(g, ticket) for _ in range(5)]
+        rel = abs(float(norms[0]) - float(want)) / float(want)
+        if rel > 1e-6 or not all(torch.equal(n, norms[0]) for n in norms):
+            raise AssertionError(f"adamw {case}: norm {float(norms[0])} vs "
+                                 f"the loop's {float(want)} (relative {rel:.2e}"
+                                 "), or reruns differ")
+        kernel, loop = optimizer_pair(dev)
+        steps = []
+        for i in range(OPTIM_STEPS):
+            g = optimizer_grads(kernel.params, norm, 10 + i)
+            before = adamw.adamw_update.launches, adamw.grad_norm.launches
+            got, want = float(kernel.step(g)), float(loop.loop_step(g))
+            if (adamw.adamw_update.launches - before[0],
+                    adamw.grad_norm.launches - before[1]) != (1, 1):
+                raise AssertionError("a step must launch the norm and the "
+                                     "update once each")
+            steps.append(abs(got - want) / want)
+        same = all(torch.equal(x, y) for x, y in zip(
+            kernel.params + kernel.mu + kernel.nu,
+            loop.params + loop.mu + loop.nu))
+        if max(steps) > 1e-6 or (case == "no_clip" and not same):
+            raise AssertionError(f"adamw {case} steps: norms {steps} relative "
+                                 f"to the loop's, state bit for bit {same}")
+        log(f"[kernel] adamw {case} (norm ~{norm}): {OPTIM_STEPS} updates bit "
+            f"for bit the loop's given its norm; the norm kernel {rel:.2e} "
+            f"relative to the loop's, 5 reruns bit for bit; whole steps' "
+            f"norms {[f'{r:.2e}' for r in steps]} relative, state bit for "
+            f"bit {same}")
+        out[case] = {"kernel": kernel, "loop": loop, "grads": g,
+                     "err": max(steps)}
+    return out
+
+
+def library_optimizer(params, grads, cfg):
+    """PyTorch's multi-tensor clip and AdamW over copies of ``params``, the
+    yardstick of the optimizer kernels: ``clip_grad_norm_`` (foreach: the
+    leaves' norms in one call, the clip coefficient on the device) and
+    ``torch.optim.AdamW(fused=True)``. Not the loop's update: it clips by
+    max_norm / (norm + 1e-6) clamped at 1 and decays the parameters before
+    the moments' step (p *= 1 - lr wd). Returns (the clip, the update)."""
+    leaves = [p.detach().clone() for p in params]
+    for p, g in zip(leaves, grads):
+        p.grad = g.contiguous()  # the fused step wants matching strides
+    opt = torch.optim.AdamW(leaves, lr=1e-3, betas=(train.B1, train.B2),
+                            eps=train.EPS,
+                            weight_decay=cfg.train.weight_decay, fused=True)
+    return (lambda: torch.nn.utils.clip_grad_norm_(
+        leaves, cfg.train.grad_clip_norm, foreach=True), opt.step)
+
+
+def phase_optimizer_timings(ok: dict, tag: dict) -> list:
+    """The optimizer kernels at the training cells' 52 leaves (the clipping
+    case): each kernel alone (device time per call, profiler) against its
+    share of the loop and of PyTorch's multi-tensor step, beside its bound
+    (the norm: g read once; the update: p, g, mu and nu read, p, mu and nu
+    written, 28 B a parameter); and one whole step of the kernels, the
+    loop and the library (launches, device time, the host's issue time of
+    one step with the device idle before it, back-to-back steps). Returns
+    the two kernels' entries of the kernels line."""
+    x = ok["clip"]
+    kernel, loop, g = x["kernel"], x["loop"], x["grads"]
+    params = kernel.params
+    ticket = torch.zeros(1, dtype=torch.int32, device=params[0].device)
+    norm = loop_norm(g)
+    lib_clip, lib_update = library_optimizer(params, g, swarm_config())
+    steps = {"kernels": lambda: kernel.step(g),
+             "loop": lambda: loop.loop_step(g),
+             "library": lambda: (lib_clip(), lib_update())}
+    res = {}
+    for name, fn in steps.items():
+        kern, _ = profiled(fn, 10)
+        issue = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        res[name] = {"device_ms": sum(e.self_device_time_total
+                                      for e in kern) / 10 / 1e3,
+                     "launches": sum(e.count for e in kern) / 10,
+                     "issue_ms": statistics.median(issue),
+                     "call_ms": cuda_ms(fn, reps=7, inner=5)}
+    shape = {"leaves": len(params),
+             "elements": sum(p.numel() for p in params), "case": "clip"}
+    log(json.dumps({"metric": "optimizer_step", "shape": shape,
+                    "steps": res,
+                    "library": "clip_grad_norm_(foreach) + "
+                               "torch.optim.AdamW(fused=True): another "
+                               "update (clip coefficient, decay order)",
+                    "timing": "device_ms: device time per step (profiler); "
+                              "launches: kernels per step (profiler); "
+                              "issue_ms: host clock over one step's "
+                              "enqueue, median of 15; call_ms: back-to-back "
+                              "steps (CUDA events)", **tag}))
+    lib_norm = lambda: torch.linalg.vector_norm(  # noqa: E731
+        torch.stack(torch._foreach_norm(g)))
+    entries = []
+    for name, fn, plain, library, bound, err in (
+            ("adamw_grad_norm", lambda: adamw.grad_norm(g, ticket),
+             lambda: loop_norm(g), lib_norm, bound_ms(g, (), 0.0), x["err"]),
+            ("adamw_update", lambda: kernel.step(g, norm),
+             lambda: loop.loop_step(g, norm), lib_update,
+             bound_ms((*params, *g, *kernel.mu, *kernel.nu),
+                      (*params, *kernel.mu, *kernel.nu), 0.0), 0.0)):
+        entries.append(time_kernel(
+            name, "mrp_gnn_tpu_torch/ops/csrc/adamw.cu",
+            "none: optax's clip_by_global_norm + adamw, fused by XLA",
+            shape, fn, plain, library,
+            "torch._foreach_norm + vector_norm" if name == "adamw_grad_norm"
+            else "torch.optim.AdamW(fused=True) step, no clip", bound, err,
+            tag))
+    return entries
 
 
 def crafted_wide_graph():
@@ -1843,10 +2055,11 @@ def phase_serving(dev, cfg, per_request: dict, path: str,
 
 def phase_train(dev, cfg, per_step: dict, path: str,
                 edge_fusion_fn=None) -> dict:
-    """Three full-width train steps through the kernels, then the same three
-    steps from the same weights through the plain ops, on the card."""
+    """Three full-width train steps through the kernels (the optimizer's
+    too), then the same three steps from the same weights through the
+    plain ops and the optimizer's loop, on the card."""
     cfg_plain = _plain(cfg)
-    want = _expected(per_step)
+    want = _expected({**per_step, **OPTIM_PER_STEP})
     it = iter(make_dataset(cfg.data, "train"))
     inputs = [train.batch_to_device(next(it), dev) for _ in range(3)]
     state = train.create_train_state(cfg, dev, edge_fusion_fn)
@@ -1873,7 +2086,7 @@ def phase_train(dev, cfg, per_step: dict, path: str,
                              "the 3 steps; the rule takes no per-edge form")
     log(f"[train {path}] bsp.source_view calls per step: {views}")
     terms = [{k: float(v) for k, v in t.items()} for t in terms]
-    plain_opt = train.make_optimizer(cfg_plain, plain_model.parameters())
+    plain_opt = plain_optimizer(cfg_plain, plain_model.parameters())
     plain_state = train.TrainState(plain_model, plain_opt)
     plain_step = train.make_train_step(cfg_plain, plain_model, plain_opt)
     plain_terms = []
@@ -2619,7 +2832,7 @@ def phase_lifecycle(dev, tag: dict) -> dict:
         times["train_s"] = time.perf_counter() - t0
         launches = bsp.launch_counts()  # ... and ends here
         per_step = {"bsp_fused_attention": h, "bsp_sddmm": h, "bsp_spmm": h,
-                    "bsp_spmm_t2": h}
+                    "bsp_spmm_t2": h, **OPTIM_PER_STEP}
         want = _expected({k: v * LIFECYCLE_STEPS for k, v in per_step.items()})
         want["bsp_fused_attention"] += h * eval_batches * n_evals
         if launches != want:
@@ -4011,15 +4224,15 @@ def phase_parallel(dev, tag: dict, rank_device: str | None = None) -> dict:
     errs = _parallel_reference_fusion(dev, fusion)
     log(f"[parallel] fusion vs the unpartitioned plain ops: max err "
         f"{max(errs.values()):.3e} over {len(errs)} outputs and gradients")
-    want = {"bsp_spmm": PARALLEL_STEPS, "bsp_sddmm": PARALLEL_STEPS,
-            "bsp_spmm_t": PARALLEL_STEPS}
-    want = {k: want.get(k, 0) for k in bsp.KERNELS}
+    per = {"bsp_spmm": 1, "bsp_sddmm": 1, "bsp_spmm_t": 1,
+           **OPTIM_PER_MESH_STEP}
+    want = {k: per.get(k, 0) * PARALLEL_STEPS for k in bsp.KERNELS}
     for r, counts in enumerate(got["launches"]):
         if counts != want:
             raise AssertionError(f"rank {r}'s launches over {PARALLEL_STEPS} "
                                  f"steps: {counts}, expected {want}")
     log(f"[parallel] launches per rank per step, on each of the "
-        f"{len(got['launches'])} ranks: bsp_spmm 1, bsp_sddmm 1, bsp_spmm_t 1 "
+        f"{len(got['launches'])} ranks: {json.dumps(per)} "
         f"({json.dumps({k: v for k, v in want.items() if v})} over "
         f"{PARALLEL_STEPS} steps)")
     if any(got["source_views"]):
@@ -4412,7 +4625,7 @@ def _check_model_axis(mode: str, got: dict, single: list, first_one: dict,
     log(f"[model axis] {mode}: each kernel call on every rank's shards vs "
         f"its plain version: max err {json.dumps(shard)}; widths and forms "
         f"on rank 0: {json.dumps(got['held'][0][1])}")
-    per = MODEL_AXIS_PER_STEP[mode]
+    per = {**MODEL_AXIS_PER_STEP[mode], **OPTIM_PER_MESH_STEP}
     want = {k: per.get(k, 0) * MODEL_AXIS_STEPS for k in bsp.KERNELS}
     for r, counts in enumerate(got["launches"]):
         if counts != want:
@@ -4607,6 +4820,7 @@ def main() -> int:
         fk = phase_form_kernels(dev)
         gk = phase_gather_kernels(dev, ek, bk2)
         sk = phase_softmax_form_kernels(dev, ek, bk2)
+        ok = phase_optimizer_kernels(dev)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -4653,6 +4867,7 @@ def main() -> int:
         phase_form_timings(fk, tag)
         phase_spmm_t_form_timings(tk, bk2, tag)
         phase_variant_timings(kin, ek, tag)
+        kernels += phase_optimizer_timings(ok, tag)
         check_path_bodies("attention", phase_train_timings(tr["attention"],
                                                            tag),
                           "train profile")

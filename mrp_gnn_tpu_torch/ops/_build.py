@@ -83,16 +83,18 @@ def stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def run(name: str, argtypes: list, *args) -> None:
-    """Call the C entry point ``name`` of ``csrc/<name>.cu`` (built at first
-    use) and raise if the launch was refused."""
-    fn = getattr(load(name), name)  # ctypes keeps one object per name
+def run(name: str, argtypes: list, *args, entry: str | None = None) -> None:
+    """Call the C entry point ``entry`` (default ``name``) of
+    ``csrc/<name>.cu`` (built at first use) and raise if the launch was
+    refused."""
+    entry = entry or name
+    fn = getattr(load(name), entry)  # ctypes keeps one object per name
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -111,14 +111,16 @@ SPMM_VEC_MIN_D = 2048
 # :func:`weights_form` takes "rows" wherever it runs, the faster form at the
 # bsp2 path's shape on the card (PERF.md section 6).
 WEIGHTS_FORMS = ("block", "rows")
-# The CUDA sources of the port (csrc/<name>.cu).
+# The CUDA sources of the port (csrc/<name>.cu); adamw.cu is the
+# optimizer's (ops/adamw.py).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
            "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
-           "block_attention")
+           "block_attention", "adamw")
 # Launch counts by wrapper: name -> (module of mrp_gnn_tpu_torch.ops,
 # wrapper). ell_spmm and ell_sddmm launch bsp_spmm.cu and bsp_sddmm.cu, and
 # count apart from bsp_spmm and bsp_sddmm; bsp_spmm_t2 is the dual form of
-# bsp_spmm_t.cu, counted apart from bsp_spmm_t.
+# bsp_spmm_t.cu, counted apart from bsp_spmm_t; adamw_grad_norm and
+# adamw_update are the two entry points of adamw.cu.
 _WRAPPERS = {
     "bsp_fused_attention": ("bsp", "fused_attention"),
     "bsp_weights": ("bsp", "attention_weights"),
@@ -132,6 +134,8 @@ _WRAPPERS = {
     "ell_softmax": ("ell", "softmax"),
     "ell_spmm": ("ell", "spmm"),
     "block_attention": ("edge", "block_attention"),
+    "adamw_grad_norm": ("adamw", "grad_norm"),
+    "adamw_update": ("adamw", "adamw_update"),
 }
 KERNELS = tuple(_WRAPPERS)
 _VALUE_TYPES = (torch.float32, torch.bfloat16)

@@ -69,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from mrp_gnn_tpu_torch.config import ExperimentConfig, get_config
 from mrp_gnn_tpu_torch.losses import total_loss
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
+from mrp_gnn_tpu_torch.ops import adamw as fused
 from mrp_gnn_tpu_torch.utils import profiling
 from mrp_gnn_tpu_torch.utils.platform import (reference_numerics,
                                               resolve_device)
@@ -104,6 +105,12 @@ class AdamW:
       update has lr 0 under the warmup schedule.
 
     Moments live beside the parameters (same device); updates are in place.
+    On the card the step is two kernel launches over every leaf
+    (``ops/adamw.py``: the norm, then the clip and update, with the bits of
+    the loop below given the same norm); it raises on a leaf the kernels
+    do not take (float32 and contiguous, each gradient of its parameter's
+    shape and contiguous or channels-last). CPU leaves take the loop
+    (:meth:`loop_step`), the plain version.
     """
 
     def __init__(self, params, schedule: Callable[[int], float],
@@ -115,12 +122,23 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self._ticket = None  # the norm kernel's, made at the first CUDA step
 
     @torch.no_grad()
     def step(self, grads, norm: torch.Tensor | None = None) -> torch.Tensor:
         """Apply one update from ``grads`` (one per parameter, in order);
         returns the global norm of the gradients before clipping, which a
         caller whose parameters are shards passes as ``norm``."""
+        if self.params and self.params[0].device.type == "cuda":
+            return self._fused_step(grads, norm)
+        return self.loop_step(grads, norm)
+
+    @torch.no_grad()
+    def loop_step(self, grads, norm: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+        """:meth:`step` as a loop of elementwise ops over the leaves, on any
+        device: the update of CPU leaves, and the plain version that the
+        card tests hold the kernels against."""
         if norm is None:
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -135,6 +153,20 @@ class AdamW:
             nu.copy_((1.0 - B2) * g * g + B2 * nu)
             update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
             p.add_(-lr * (update + self.weight_decay * p))
+        return norm
+
+    def _fused_step(self, grads, norm: torch.Tensor | None) -> torch.Tensor:
+        dev = self.params[0].device
+        if norm is None and (self._ticket is None
+                             or self._ticket.device != dev):
+            self._ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        norm = fused.adamw_update(
+            self.params, list(grads), self.mu, self.nu, norm,
+            ticket=self._ticket, lr=self.schedule(self.count),
+            count=self.count + 1, max_norm=self.max_norm,
+            weight_decay=self.weight_decay, b1=B1, b2=B2, eps=EPS)
+        self.count += 1
+        profiling.count("optim.fused_leaves", len(self.params))
         return norm
 
 
