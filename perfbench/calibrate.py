@@ -1,8 +1,9 @@
 """Readings that the limits of ``correct`` are set from, for one cell, in
 one process: for each seed, the program's numbers against the reference
-(the lower readings), the control's (the reference in TF32, the nearest
-lower precision, put in the program's place) and those of planted faults
-(the reference put in the program's place, with the fault in it).
+that the cell's configuration names (the lower readings), the control's
+(that reference in TF32, the nearest lower precision, put in the
+program's place) and those of planted faults (that reference put in the
+program's place, with the fault in it).
 
     python3 -m perfbench.calibrate --workload swarm_train --seeds 1-12 \
         [--control 1-3] [--seconds 3] [--out FILE]
@@ -32,7 +33,6 @@ import sys
 import torch
 
 from perfbench import cells, compare
-from perfbench.reference import model as M
 
 BUMP_M = 0.5
 
@@ -52,11 +52,14 @@ def _halved(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bumped_forward(p, images, graph, model):
-    out = M.forward(p, images, graph, model)
-    depth = out["depth"].clone()
-    depth[0] = depth[0] + BUMP_M
-    return {**out, "depth": depth}
+def _bumped(forward):
+    """``forward`` with 0.5 m added to the first view's depth."""
+    def bumped(p, images, graph, model):
+        out = forward(p, images, graph, model)
+        depth = out["depth"].clone()
+        depth[0] = depth[0] + BUMP_M
+        return {**out, "depth": depth}
+    return bumped
 
 
 def train_seed(cell: dict, seed: int, device, control: bool) -> dict:
@@ -76,7 +79,7 @@ def train_seed(cell: dict, seed: int, device, control: bool) -> dict:
         line["fault_half_batch"] = compare.train_readings(
             c.reference(batches=half), ref, c.params0)
         line["fault_altered_answer"] = compare.train_readings(
-            c.reference(forward=_bumped_forward), ref, c.params0)
+            c.reference(forward=_bumped(c.ref.forward)), ref, c.params0)
     return line
 
 

@@ -29,7 +29,6 @@ from perfbench import cells, compare, trace, traffic, weights
 from perfbench.drivers import (attach_profile, device_info,
                                free_device_memory, metric, per_layer,
                                ref_graph)
-from perfbench.reference import model as M
 from perfbench.reference import numerics
 
 FAILED_LATENCY_MS = 3.6e6  # stands for an infinite latency in the line
@@ -48,6 +47,7 @@ class ServeCell:
         from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
         from mrp_gnn_tpu_torch.serving import Predictor
         self.doc = cell["config_doc"]
+        self.ref = cells.reference(self.doc)
         self.traffic = tr = cell["traffic_doc"]
         self.limits = cell["limits"]
         self.seed, self.device, self.rec = seed, device, rec
@@ -136,13 +136,14 @@ class ServeCell:
         self.model = self.predictor = None
         free_device_memory(self.device)
 
-    def reference_outputs(self, i: int, precision: str = "ieee",
-                          forward=M.forward) -> tuple:
-        """(reference outputs, real-robot mask) of request ``i``."""
+    def reference_outputs(self, i: int, precision: str = "ieee") -> tuple:
+        """(outputs of the configuration's reference, real-robot mask) of
+        request ``i``."""
         graph = ref_graph(self.doc["data"], None).to(self.device)
         images = torch.from_numpy(self.pool[self.pool_index[i]]).to(self.device)
         with numerics(precision), torch.no_grad():
-            out = forward(self.params0, images, graph, self.doc["model"])
+            out = self.ref.forward(self.params0, images, graph,
+                                   self.doc["model"])
         return out, graph.node_mask
 
     def readings(self, served: dict | None = None) -> dict:
@@ -178,6 +179,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool,
         print(e, file=sys.stderr)
     graph_edges = [int(ref_graph(c.doc["data"], None).num_edges)] * len(c.due)
     record = {"mode": "serve", "model": c.doc["model"],
+              "reference": c.doc["reference"],
               "num_nodes": c.max_nodes, "edges": graph_edges, **w,
               "spans_ms": dict(rec.spans_ms),
               "device_ms": rec.device_ms(),

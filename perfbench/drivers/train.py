@@ -44,6 +44,7 @@ class TrainCell:
                                              create_train_state,
                                              make_train_step)
         self.doc = cell["config_doc"]
+        self.ref = cells.reference(self.doc)
         self.traffic = cell["traffic_doc"]
         self.limits = cell["limits"]
         self.seed, self.device, self.rec = seed, device, rec
@@ -151,12 +152,12 @@ class TrainCell:
 
     def reference(self, precision: str = "ieee", forward=None,
                   batches=None) -> dict:
-        """The reference's checked steps; ``forward`` and ``batches``
-        replace its model and inputs (a planted fault)."""
-        kw = {} if forward is None else {"forward": forward}
+        """The checked steps of the configuration's reference; ``forward``
+        and ``batches`` replace its network and inputs (a planted fault)."""
         with numerics(precision):
             return RT.follow(self.params0, batches or self.reference_batches(),
-                             self.doc["model"], self.doc["train"], **kw)
+                             self.doc["model"], self.doc["train"],
+                             forward=forward or self.ref.forward)
 
     def readings(self, against: dict | None = None) -> dict:
         """The numbers compared: the program's checked steps (or
@@ -176,6 +177,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool,
     setup_s = time.perf_counter() - t_start
     w = c.window(seconds, prof)
     record = {"mode": "train", "model": c.doc["model"],
+              "reference": c.doc["reference"],
               "num_nodes": int(c.cfg.data.max_nodes or
                                c.cfg.data.num_robots
                                * c.cfg.data.scenes_per_batch),

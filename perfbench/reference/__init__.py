@@ -1,9 +1,14 @@
-"""The plain reference that decides ``correct``: the network, its losses
-and its optimizer in plain PyTorch (``model.py``, ``train.py``), and frozen
-copies of the data rules it needs: the training stream's scenes
-(``render.py``) and its graphs (``graph.py``). It imports nothing of the
-measured program and takes nothing the program made; the benchmark hands it
-the same seeded weights and inputs as the program.
+"""The plain reference that decides ``correct``: the networks, their
+losses and their optimizer in plain PyTorch, and frozen copies of the data
+rules they need: the training stream's scenes (``render.py``) and its
+graphs (``graph.py``). It imports nothing of the measured program and
+takes nothing the program made; the benchmark hands it the same seeded
+weights and inputs as the program.
+
+Each configuration file names its network's module (``reference``; see
+``cells.reference`` for the interface): ``model.py`` is the CNN encoder
+with single-head attention fusion. The training step (``train.py``) takes
+the network's ``forward``, whichever module it comes from.
 
 :func:`numerics` fixes the precision that a reference pass runs in:
 "ieee" (float32 everywhere, the configuration's precision) or "tf32" (the

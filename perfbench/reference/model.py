@@ -15,8 +15,14 @@ to the ego features, padded node slots zeroed.
 
 Parameter names are the state-dict keys of the measured model, so the
 benchmark hands both sides the same dict. The edge block is made of gathers
-and index additions only: it carries no FLOP formula, and ``work.py`` adds
-its operations from the edge count.
+and index additions only: it carries no FLOP formula, so
+:func:`edge_flops` gives its operations from the edge count, which
+``work.py`` adds to what ``FlopCounterMode`` counts.
+
+A configuration file names this module as its ``reference`` ("model").
+Every reference module provides the same five functions: ``forward``,
+``param_shapes``, ``fusion_input_shape``, ``edge_flops`` and
+``fusion_work`` (``cells.reference`` refuses one that lacks any).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from perfbench.reference.graph import RefGraph
 
 GN_EPS = 1e-6
+F32_BYTES = 4
 
 
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -125,3 +132,74 @@ def fusion_input_shape(model: dict, num_nodes: int) -> tuple:
     stride = 2 ** len(model["encoder_channels"])
     H, W = model["image_size"]
     return (num_nodes, model["encoder_channels"][-1], H // stride, W // stride)
+
+
+def param_shapes(model: dict) -> dict:
+    """{parameter name: shape} of the network at ``model``'s sizes."""
+    c = list(model["encoder_channels"])
+    groups = lambda ch: {".weight": (ch,), ".bias": (ch,)}  # noqa: E731
+    shapes = {}
+
+    def block(name, cin, cout):
+        shapes[name + ".Conv_0.weight"] = (cout, cin, 3, 3)
+        for s, shp in groups(cout).items():
+            shapes[name + ".GroupNorm_0" + s] = shp
+
+    block("encoder.stem", model["in_channels"], c[0])
+    prev = c[0]
+    for i, ch in enumerate(c):
+        block(f"encoder.down{i}", prev, ch)
+        block(f"encoder.res{i}.ConvBlock_0", ch, ch)
+        shapes[f"encoder.res{i}.Conv_0.weight"] = (ch, ch, 3, 3)
+        for s, shp in groups(ch).items():
+            shapes[f"encoder.res{i}.GroupNorm_0" + s] = shp
+        prev = ch
+    C, dk = c[-1], model["attention_dim"]
+    for i in range(model["num_fusion_layers"]):
+        f = f"fusion{i}"
+        shapes.update({f + ".value.weight": (C, C, 1, 1), f + ".value.bias": (C,),
+                       f + ".query.weight": (dk, C), f + ".query.bias": (dk,),
+                       f + ".key.weight": (dk, C), f + ".key.bias": (dk,),
+                       f + ".update.weight": (C, 2 * C, 1, 1),
+                       f + ".update_norm.weight": (C,),
+                       f + ".update_norm.bias": (C,)})
+    x = C
+    for i in reversed(range(len(c))):
+        cin = x + (c[i - 1] if i > 0 else 0)
+        x = c[max(i - 1, 0)]
+        block(f"decoder.up{i}", cin, x)
+    shapes["depth_head.out.weight"] = (1, x, 1, 1)
+    shapes["depth_head.out.bias"] = (1,)
+    k = model["num_seg_classes"]
+    shapes["seg_head.out.weight"] = (k, x, 1, 1)
+    shapes["seg_head.out.bias"] = (k,)
+    return shapes
+
+
+def edge_flops(model: dict, num_edges: int) -> float:
+    """One pass of the attention edge block over ``num_edges`` valid edges,
+    per fusion layer: 2 E (dk + D), D the flattened bottleneck width."""
+    _, C, h, w = fusion_input_shape(model, 1)
+    return (2.0 * num_edges * (model["attention_dim"] + C * h * w)
+            * model["num_fusion_layers"])
+
+
+def fusion_work(model: dict, num_nodes: int, num_edges: int,
+                backward: bool) -> tuple:
+    """(FLOPs, least bytes) of the fusion layers, forward or forward and
+    backward, at ``num_nodes`` node slots and ``num_edges`` valid edges."""
+    V, C, h, w = fusion_input_shape(model, num_nodes)
+    dk = model["attention_dim"]
+    maps = V * C * h * w * F32_BYTES
+    weights = (C * C + C + 2 * (C * dk + dk) + 2 * C * C + 2 * C) * F32_BYTES
+    graph = num_edges * 2 * 4 + V          # edge ends and the node mask
+    dense = 2 * V * h * w * (C * C + 2 * C * C) + 2 * 2 * V * C * dk
+    per_layer_flops = dense + edge_flops(model, num_edges) / model[
+        "num_fusion_layers"]
+    fwd_bytes = maps + weights + graph + maps          # features in, out
+    bwd_bytes = (2 * maps + weights + graph            # grad out, features
+                 + maps + weights)                     # grad in, grad weights
+    n = model["num_fusion_layers"]
+    if backward:
+        return 3 * per_layer_flops * n, (fwd_bytes + bwd_bytes) * n
+    return per_layer_flops * n, fwd_bytes * n

@@ -18,8 +18,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from perfbench.reference import model as M
-
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -76,8 +74,9 @@ class AdamW:
 
 
 def follow(params: dict, batches, model: dict, train: dict,
-           forward=M.forward) -> dict:
-    """Runs ``len(batches)`` training steps from ``params`` (copied).
+           forward) -> dict:
+    """Runs ``len(batches)`` training steps of the network ``forward`` (a
+    reference module's, or a planted fault's) from ``params`` (copied).
     Each batch: (images, depth, seg, RefGraph) on the params' device.
     Returns the loss terms of each step, the clipped gradients of the first
     step and the parameters after the last."""

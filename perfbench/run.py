@@ -16,6 +16,9 @@ reference (``compare.py``) and prints each number compared with its limit,
 on standard error and under ``checks``, the line's last key. The last line
 of standard output is the result.
 
+The configuration's ``environment`` (``cells.environment``), such as the
+size of the host's OpenMP pools, is set before the program loads.
+
 Kernel and compiler caches go to directories inside the checkout; the
 program's own builds already live there (``mrp_gnn_tpu_torch/ops/_build``,
 ``mrp_gnn_tpu_torch/data/_build``).
@@ -87,12 +90,15 @@ def execute(args: argparse.Namespace, root: Path, device) -> dict:
 
 def main(argv=None) -> int:
     args = parse(argv)
+    from perfbench import cells
+    cell = cells.cell(args.workload)
+    # thread pools read their sizes when torch and the native helpers load
+    os.environ.update(cells.environment(cell["config_doc"]))
     try:
         import mrp_gnn_tpu_torch  # noqa: F401
     except ImportError as e:
         raise SystemExit(f"perfbench: the program is not here ({e})")
-    from perfbench import cells
-    chips = cells.cell(args.workload)["chips"]
+    chips = cell["chips"]
     result = execute(args, cells.ROOT, require_cards(chips))
     bad = loaded_forbidden()
     if bad:

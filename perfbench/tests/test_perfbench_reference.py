@@ -99,7 +99,8 @@ def test_three_training_steps_match_the_programs_step():
         batches.append((images, depth, seg, ref_graph))
     prog = {"losses": losses, "grads": grads,
             "params": dict(state.model.named_parameters())}
-    ref = RT.follow(p0, batches, MODEL, dataclasses.asdict(cfg.train))
+    ref = RT.follow(p0, batches, MODEL, dataclasses.asdict(cfg.train),
+                    forward=M.forward)
     for a, b in zip(losses, ref["losses"]):
         for k in ("depth_l1", "seg_ce", "total"):
             assert a[k] == pytest.approx(b[k], rel=1e-5)

@@ -1,11 +1,11 @@
 """The work counts against ``FlopCounterMode`` and the program's shapes,
-at a tiny size on the CPU."""
+at a tiny size on the CPU, and at the configurations' real sizes."""
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench import work
+from perfbench import cells, work
 from perfbench.reference import model as M
 from perfbench.reference.graph import full_graph
 
@@ -16,8 +16,8 @@ MODEL = {"image_size": [16, 16], "in_channels": 3,
 
 
 def _params(gen):
-    return {k: torch.randn(v.shape, generator=gen, requires_grad=True)
-            for k, v in work._meta_params(MODEL).items()}
+    return {k: torch.randn(s, generator=gen, requires_grad=True)
+            for k, s in M.param_shapes(MODEL).items()}
 
 
 def test_meta_parameters_are_the_programs():
@@ -27,8 +27,7 @@ def test_meta_parameters_are_the_programs():
                       attention_dim=8, num_seg_classes=6)
     net = MultiRobotPerceptionNet(cfg)
     want = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-    have = {k: tuple(v.shape) for k, v in work._meta_params(MODEL).items()}
-    assert have == want
+    assert M.param_shapes(MODEL) == want
 
 
 @pytest.mark.parametrize("scenes,robots", [(2, 5), (3, 4)])
@@ -42,14 +41,14 @@ def test_counts_match_flop_counter_on_real_tensors(scenes, robots):
     with FlopCounterMode(display=False) as fwd:
         out = M.forward(p, images, graph, MODEL)
     # the edge block's gathers carry no formula: the counter sees the rest
-    assert work.forward_flops(MODEL, V, E) == pytest.approx(
-        fwd.get_total_flops() + work.edge_flops(MODEL, E))
+    assert work.forward_flops(M, MODEL, V, E) == pytest.approx(
+        fwd.get_total_flops() + M.edge_flops(MODEL, E))
     with FlopCounterMode(display=False) as both:
         out = M.forward(p, images, graph, MODEL)
         torch.autograd.grad(out["depth"].sum() + out["seg_logits"].sum(),
                             list(p.values()))
-    assert work.step_flops(MODEL, V, E) == pytest.approx(
-        both.get_total_flops() + 3 * work.edge_flops(MODEL, E))
+    assert work.step_flops(M, MODEL, V, E) == pytest.approx(
+        both.get_total_flops() + 3 * M.edge_flops(MODEL, E))
 
 
 def test_fusion_work_matches_flop_counter():
@@ -60,22 +59,32 @@ def test_fusion_work_matches_flop_counter():
     feats = torch.rand(M.fusion_input_shape(MODEL, V), generator=gen)
     with FlopCounterMode(display=False) as fwd:
         M.fusion(p, "fusion0", feats, graph, MODEL["norm_groups"])
-    flops, n_bytes = work.fusion_work(MODEL, V, graph.num_edges, False)
+    flops, n_bytes = M.fusion_work(MODEL, V, graph.num_edges, False)
     assert flops == pytest.approx(fwd.get_total_flops()
-                                  + work.edge_flops(MODEL, graph.num_edges))
-    assert work.fusion_work(MODEL, V, graph.num_edges, True)[0] == 3 * flops
+                                  + M.edge_flops(MODEL, graph.num_edges))
+    assert M.fusion_work(MODEL, V, graph.num_edges, True)[0] == 3 * flops
     assert n_bytes > 2 * feats.numel() * 4
 
 
-def test_the_cells_sizes():
-    """The counts at the configurations' shapes (V 256 with a swarm batch's
-    1,888 edges; V 512 with 2 x 193 x 192)."""
-    full = dict(MODEL, image_size=[64, 64], encoder_channels=[32, 64, 128],
-                attention_dim=64)
-    assert work.forward_flops(full, 256, 1888) == pytest.approx(90.9e9, rel=1e-3)
-    assert work.step_flops(full, 256, 1888) == pytest.approx(270.9e9, rel=1e-3)
-    assert work.forward_flops(full, 512, 74112) == pytest.approx(183.0e9, rel=1e-3)
-    assert work.step_flops(full, 512, 74112) == pytest.approx(545.3e9, rel=1e-3)
+@pytest.mark.parametrize("config,V,E,counts", [
+    # a swarm batch: V 256 with 1,888 edges
+    ("dynamic_swarm", 256, 1888,
+     (90904965120.0, 270902956032.0, (1650176000.0, 17056768),
+      (4950528000.0, 42766336))),
+    # V 512 with 2 x 193 x 192 edges
+    ("dense_swarm", 512, 74112,
+     (182971318272.0, 545290076160.0, (4461740032.0, 34412032),
+      (13385220096.0, 85865472)))])
+def test_the_cells_sizes(config, V, E, counts):
+    """The counts at the configurations' real sizes, pinned exactly: the
+    cells' ``train_mfu``, ``serve_forward_mfu`` and fusion rooflines
+    divide by them."""
+    doc = cells.load("configs", config)
+    ref, model = cells.reference(doc), doc["model"]
+    assert (work.forward_flops(ref, model, V, E),
+            work.step_flops(ref, model, V, E),
+            ref.fusion_work(model, V, E, False),
+            ref.fusion_work(model, V, E, True)) == counts
 
 
 def test_roofline_share():

@@ -1,8 +1,9 @@
 """A copy of the benchmark's cell files at a size a CPU test run can hold.
 
 :func:`tiny_root` writes ``configs/``, ``traffic/``, ``workloads/`` and
-``metrics/`` under a directory, each configuration cut to 16 x 16 frames, a
-narrow encoder and a few robots, each serving rate and window to a few
+``metrics/`` under a directory, each configuration cut to the sizes of its
+own ``tiny`` section (its ``model`` and ``data`` fields: small frames, a
+narrow encoder and a few robots), each serving rate and window to a few
 requests. The cells, their modes and their limits are the real ones.
 """
 
@@ -14,22 +15,12 @@ from pathlib import Path
 
 from perfbench import cells
 
-MODEL = {"image_size": [16, 16], "encoder_channels": [8, 16, 16],
-         "attention_dim": 8}
-DATA = {
-    "dynamic_swarm": {"num_robots": 8, "scenes_per_batch": 2,
-                      "image_size": [16, 16], "comm_radius": 2,
-                      "num_train_scenes": 16},
-    "dense_swarm": {"num_robots": 5, "scenes_per_batch": 2,
-                    "image_size": [16, 16], "max_nodes": 16,
-                    "num_train_scenes": 16},
-}
 TRAFFIC = {"train": {"log_every": 2, "warmup_steps": 1},
            "serve": {"rate_per_s": 20.0, "pool": 3, "sample": 4,
                      "warmup_requests": 1}}
 
 
-def tiny_root(path: Path, sizes: dict | None = None) -> Path:
+def tiny_root(path: Path) -> Path:
     """Writes the tiny cell files under ``path`` and returns it."""
     path = Path(path)
     for kind in ("configs", "traffic", "workloads"):
@@ -38,11 +29,12 @@ def tiny_root(path: Path, sizes: dict | None = None) -> Path:
                     dirs_exist_ok=True)
     for name in cells.names("configs"):
         doc = cells.load("configs", name)
-        data = dict(DATA[name], **(sizes or {}))
-        doc["model"].update(MODEL)
+        model = doc["tiny"]["model"]
+        data = doc["tiny"]["data"]
+        doc["model"].update(model)
         doc["data"].update(data)
         over = doc.setdefault("overrides", {})
-        over.setdefault("model", {}).update(MODEL)
+        over.setdefault("model", {}).update(model)
         over.setdefault("data", {}).update(data)
         (path / "configs" / f"{name}.json").write_text(json.dumps(doc))
     for name in cells.names("traffic"):
