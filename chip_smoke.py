@@ -7,7 +7,7 @@
 of phase 10, ``--model-axis-rank MODE R WORLD STORE OUT`` one of phase 11;
 the script starts them itself.)
 
-Seven paths through the fusion layer, each at the full width of a preset
+Eight paths through the fusion layer, each at the full width of a preset
 (64x64 images, encoder 32/64/128, one fusion layer, 6 classes, f32, random
 seeded weights; numpy renderer and graph builder unless said otherwise):
 
@@ -24,7 +24,9 @@ seeded weights; numpy renderer and graph builder unless said otherwise):
 - bsp2: ``dynamic_swarm`` on the native C++ renderer and graph builder
   (``renderer`` and ``graph_builder`` "native": the JAX package's default
   host side, which raises rather than fall back), with the two-kernel
-  attention (the weights kernel, then the SpMM) swapped in.
+  attention (the weights kernel, then the SpMM) swapped in;
+- attfuse: ``dense_attfuse``'s network (``model.fusion`` "attfuse", one
+  parameter-free AttFuse an encoder stage) on hideg's 2 x 193 robots.
 
 The fused attention's backward (attention and hideg) takes dvalues and dk
 from one launch of the dual transposed SpMM; on the hideg path it runs on
@@ -87,7 +89,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at the training cells' 52 leaves (the convolutions' gradients
    channels-last, as cuDNN gives them), with and without clipping: updates
    bit for bit given the loop's norm, the norm kernel within 1e-6 relative
-   and bit for bit on reruns, exact launch counts;
+   and bit for bit on reruns, exact launch counts; the AttFuse kernels
+   (masks, forward, backward) at ``dense_attfuse``'s three scales on the
+   hideg batch graph against the plain form (forward within 2e-5, the
+   whole gradient within 1e-4; the masks' bits exactly; padded rows 0;
+   reruns bit for bit), bf16 maps through ``attfuse`` on the kernels and
+   a width they are not built for refused;
 4. serving: for each path, three eval batches through ``Predictor``,
    checked for range, for the kernel launches of each request, and against
    the same Predictor with the plain ops;
@@ -121,7 +128,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    batch (f32 and bf16), the mean and bsp2 forwards and dq's shape (D 64)
    (``spmm_form_ab``, the rule's crossover); the fused optimizer step
    against the loop at the 52 leaves (device time, launches and the
-   host's issue time per step); the Predictor's device-
+   host's issue time per step); the AttFuse kernels at each scale beside
+   their bound, the layout copies, the plain form and the SDPA yardstick
+   (memory-efficient backend: forward, backward, both), and the attfuse
+   path's ``fusion.attfuse*`` spans against the profiler's time of the
+   kernels inside them (within 10%; each span and the slots counter
+   once a scale a step); the Predictor's device-
    side batch latency and whole-request latency; the train step's device
    time with the kernels and with the plain ops, one whole step through
    ``train()`` (host clock, data included; numpy renderer on the attention
@@ -283,6 +295,7 @@ from mrp_gnn_tpu_torch.graph import batch_fully_connected, build_graph_batch
 from mrp_gnn_tpu_torch.models import MultiRobotPerceptionNet
 from mrp_gnn_tpu_torch.models.fusion import default_edge_fusion
 from mrp_gnn_tpu_torch.ops import _build, adamw, bsp, edge, ell
+from mrp_gnn_tpu_torch.ops import attfuse as A
 from mrp_gnn_tpu_torch.ops import reference as R
 from mrp_gnn_tpu_torch.evaluate import evaluate
 from mrp_gnn_tpu_torch.serving import (Predictor, export_predictor,
@@ -315,8 +328,17 @@ PORT_KERNEL_BODIES = ("fused_attention_kernel", "fused_vec_kernel",
                       "fused_parts_weights_kernel", "fused_parts_tiled_kernel",
                       "block_attention_f32_kernel",
                       "block_attention_bf16_kernel", "spmm_vec_kernel",
-                      "weights_rows_kernel", "ell_softmax_register_kernel")
+                      "weights_rows_kernel", "ell_softmax_register_kernel",
+                      "attfuse_graph_kernel", "attfuse_forward_kernel",
+                      "attfuse_delta_kernel", "attfuse_backward_kernel")
 HIDEG_ROBOTS, HIDEG_SCENES, HIDEG_SLOTS = 193, 2, 512
+ATTFUSE_SCALES = ((32, 32), (16, 64), (8, 128))  # dense_attfuse: side, C
+# AttFuse kernels vs the plain form, max abs err on maps N(0, 1/4) and a
+# N(0, 1) cotangent: the forward sums unit-size terms; the gradient sums
+# three C-wide products a pair.
+TOL_ATTFUSE = {"forward": 2e-5, "backward": 1e-4}
+TOL_ATTFUSE_SPANS = 0.10  # the spans' device ms a step vs the profiler's
+ATTFUSE_SPAN_STEPS = 10
 # The edge block of the JAX package's benchmark (bench.py: V 8192 in
 # fully connected 8-robot scenes, D 2048, dk 64).
 BENCH_SCENES, BENCH_ROBOTS, BENCH_D, BENCH_DK = 1024, 8, 2048, 64
@@ -934,6 +956,274 @@ def phase_optimizer_timings(ok: dict, tag: dict) -> list:
             else "torch.optim.AdamW(fused=True) step, no clip", bound, err,
             tag))
     return entries
+
+
+def attfuse_config():
+    """``dense_attfuse``'s network on the hideg path's data: one AttFuse an
+    encoder stage (``model.fusion`` "attfuse")."""
+    cfg = hideg_config()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, fusion="attfuse",
+        num_fusion_layers=len(cfg.model.encoder_channels)))
+
+
+def sdpa_attfuse(xt, mask):
+    """The AttFuse forward's library yardstick: one SDPA call, q = k = v =
+    xt [P, V, C] as [P, 1, V, C], the boolean [V, V] mask, scale 1/sqrt(C),
+    on the memory-efficient backend (the math one excluded). It visits
+    all V x V pairs, and gives a padded row its own map, not 0."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q = xt[:, None]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q, q, q, attn_mask=mask)[:, 0]
+
+
+def _mask_bits(words, V: int) -> torch.Tensor:
+    """The kernels' bit matrix [V, nt] int64 as a [V, V] bool mask."""
+    bits = torch.arange(A.TILE, device=words.device)
+    return ((words[:, :, None] >> bits) & 1).bool().reshape(V, -1)[:, :V]
+
+
+def phase_attfuse_kernels(dev) -> dict:
+    """The AttFuse kernels against the plain form at ``dense_attfuse``'s
+    three scales on the hideg batch graph (f32 maps N(0, 1/4), a N(0, 1)
+    cotangent): the masks' bits equal to the edge list's on the real rows,
+    the forward and the whole gradient within TOL_ATTFUSE, padded rows 0,
+    reruns bit for bit, the SDPA yardstick's error beside; bf16 maps
+    through ``attfuse`` on the kernels (in f32), and a width the kernels
+    are not built for refused. Returns the graph, its masks and each
+    scale's tensors."""
+    g = hideg_graph(dev)
+    V = g.max_nodes
+    real = g.node_mask
+    mask = A.dense_mask(g, V)
+    masks = A.graph_masks(g.ell_src, g.ell_mask, real)
+    got_bits = _mask_bits(masks.words, V)
+    if not torch.equal(got_bits[real][:, real], mask[real][:, real]) \
+            or bool(got_bits[~real].any()) or bool(got_bits[:, ~real].any()):
+        raise AssertionError("attfuse_graph: the bit matrix is not the set "
+                             "of every real row")
+    log(f"[kernel] attfuse_graph: {int(got_bits.sum())} bits, the edge "
+        f"list's sets exactly; {int(masks.tiles[0].sum())} flagged tile "
+        "pairs")
+    scales = []
+    for size, C in ATTFUSE_SCALES:
+        gen = torch.Generator(device=dev).manual_seed(size * C)
+        P = size * size
+        xt = torch.randn(P, V, C, device=dev, generator=gen) * 0.5
+        gy = torch.randn(P, V, C, device=dev, generator=gen)
+        y, lse = A.forward(xt, masks)
+        gx = A.backward(xt, y, gy, lse, masks)
+        xr = xt.clone().requires_grad_()
+        want = A.attfuse_reference(xr, mask, real)
+        want_gx, = torch.autograd.grad(want, xr, gy)
+        name = f"attfuse {size}x{size}x{C}"
+        errs = {k: check_kernel_vs_plain(f"{name} {k}", got, ref, False,
+                                         TOL_ATTFUSE[k] / TOL_F32)
+                for k, got, ref in (("forward", y, want.detach()),
+                                    ("backward", gx, want_gx))}
+        if bool(y[:, ~real].any()) or bool(gx[:, ~real].any()):
+            raise AssertionError(f"{name}: a padded row is not 0")
+        y2, lse2 = A.forward(xt, masks)
+        if not (torch.equal(y, y2) and torch.equal(lse, lse2) and torch.equal(
+                gx, A.backward(xt, y, gy, lse, masks))):
+            raise AssertionError(f"{name}: a rerun differs")
+        sdpa_err = float((sdpa_attfuse(xt, mask) - want)[:, real].abs().max())
+        log(f"[kernel] {name}: reruns bit for bit; the SDPA yardstick's "
+            f"max abs err on the real rows {sdpa_err:.3e}")
+        scales.append({"size": size, "C": C, "x": xt, "gy": gy, "y": y,
+                       "lse": lse, "errs": errs, "sdpa_err": sdpa_err})
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x16 = (torch.randn(V, 128, 8, 8, device=dev, generator=gen) * 0.5).to(
+        torch.bfloat16).requires_grad_()
+    before = bsp.launch_counts()
+    y16 = A.attfuse(x16, g, kernels=True)
+    gx16, = torch.autograd.grad(y16, x16, torch.ones_like(y16))
+    got = _delta(before, bsp.launch_counts())
+    want = _expected({"attfuse_graph": 1, "attfuse_forward": 1,
+                      "attfuse_backward": 2})
+    if got != want or y16.dtype != torch.bfloat16 \
+            or gx16.dtype != torch.bfloat16:
+        raise AssertionError(f"attfuse bf16 maps: launches {got}, dtypes "
+                             f"{y16.dtype} {gx16.dtype}; expected {want}")
+    check_kernel_vs_plain("attfuse bf16 maps (kernels in f32)", y16,
+                          A.attfuse(x16.detach().float(), g, kernels=False)
+                          .to(torch.bfloat16), True)
+    msg = _expect_raise(ValueError, lambda: A.attfuse(
+        torch.rand(V, 48, 4, 4, device=dev), g, kernels=True),
+        "attfuse at C 48")
+    log(f"[kernel] attfuse at C 48 refused: {msg}")
+    return {"graph": g, "mask": mask, "masks": masks, "scales": scales}
+
+
+def phase_attfuse_timings(ak: dict, tag: dict) -> list:
+    """The AttFuse kernels at ``dense_attfuse``'s shapes. Per scale (an
+    ``attfuse_kernels`` line): the device time per call (profiler) of the
+    masks, the forward, the backward (two launches), ``attfuse``'s layout
+    copies there and back, the plain form (forward; forward and backward)
+    and the SDPA yardstick (forward; backward from a kept forward; both),
+    beside the forward's and the backward's bound (4 E P C and 8 E P C
+    operations). Returns the kernels line's three entries: the masks a
+    call, the forward and the backward over a step's three scales."""
+    g, mask, masks, sc = ak["graph"], ak["mask"], ak["masks"], ak["scales"]
+    V, E = g.max_nodes, int(g.ell_mask.sum())
+    real = g.node_mask
+    src = "mrp_gnn_tpu_torch/ops/csrc/attfuse.cu"
+    replaces = "none: the JAX package has no AttFuse"
+    rows = torch.arange(V, device=real.device)[:, None].expand_as(g.ell_src)
+    ones = g.ell_mask.float()
+
+    def graph():
+        return A.graph_masks(g.ell_src, g.ell_mask, real)
+
+    def graph_lib():
+        return torch.zeros(V, V, device=real.device).index_put_(
+            (rows, g.ell_src.long()), ones, accumulate=True)
+
+    steps = {k: [] for k in ("forward", "backward", "plain_forward",
+                             "plain_both", "sdpa_forward", "sdpa_backward")}
+    for s in sc:
+        xt, gy, y, lse = s["x"], s["gy"], s["y"], s["lse"]
+        P, _, C = xt.shape
+        side = s["size"]
+        xr = xt.clone().requires_grad_()
+        lib_y = sdpa_attfuse(xr, mask)
+        x4 = xt.reshape(side, side, V, C).permute(2, 3, 0, 1).contiguous()
+        fns = {
+            "graph": graph,
+            "forward": lambda xt=xt: A.forward(xt, masks),
+            "backward": lambda xt=xt, y=y, gy=gy, lse=lse: A.backward(
+                xt, y, gy, lse, masks),
+            "layout": lambda x4=x4, P=P, C=C, side=side: x4.permute(
+                2, 3, 0, 1).reshape(P, V, C).contiguous().reshape(
+                    side, side, V, C).permute(2, 3, 0, 1).contiguous(),
+            "plain_forward": lambda xt=xt: A.attfuse_reference(xt, mask,
+                                                               real),
+            "plain_both": lambda xr=xr, gy=gy: torch.autograd.grad(
+                A.attfuse_reference(xr, mask, real), xr, gy),
+            "sdpa_forward": lambda xt=xt: sdpa_attfuse(xt, mask),
+            "sdpa_backward": lambda xr=xr, gy=gy, lib_y=lib_y:
+                torch.autograd.grad(lib_y, xr, gy, retain_graph=True),
+            "sdpa_both": lambda xr=xr, gy=gy: torch.autograd.grad(
+                sdpa_attfuse(xr, mask), xr, gy),
+        }
+        ms = {k: device_ms(f, n=10) for k, f in fns.items()}
+        log(json.dumps({
+            "metric": "attfuse_kernels", "scale": f"{side}x{side}x{C}",
+            "V": V, "E": E, "ms": ms,
+            "forward_bound_ms": bound_ms((xt,), (y, lse),
+                                         4.0 * E * P * C)[0],
+            "backward_bound_ms": bound_ms((xt, y, gy, lse), (xt,),
+                                          8.0 * E * P * C)[0],
+            "sdpa_max_abs_err": s["sdpa_err"],
+            "library": "scaled_dot_product_attention, memory-efficient "
+                       "backend, boolean [V, V] mask (all V x V pairs)",
+            "timing": "device time per call (profiler), 10 calls",
+            **tag}))
+        for k, fn_list in steps.items():
+            fn_list.append(fns[k])
+    step = {k: (lambda fl=fl: [f() for f in fl]) for k, fl in steps.items()}
+    xs = [s["x"] for s in sc]
+    ys_lse = [s["y"] for s in sc] + [s["lse"] for s in sc]
+    flops = 4.0 * E * sum(x.shape[0] * x.shape[2] for x in xs)
+    shape = {"V": V, "E": E, "scales": [f"{s['size']}x{s['size']}x{s['C']}"
+                                        for s in sc],
+             "per": "masks: a call; forward, backward: a step's 3 scales"}
+    return [
+        time_kernel("attfuse_graph", src, replaces, shape, graph,
+                    lambda: A.dense_mask(g, V), graph_lib,
+                    "index_put_(accumulate) into a dense [V, V] map",
+                    bound_ms((g.ell_src, g.ell_mask, real),
+                             (masks.words, masks.tiles), 0.0), 0.0, tag),
+        time_kernel("attfuse_forward", src, replaces, shape,
+                    step["forward"], step["plain_forward"],
+                    step["sdpa_forward"],
+                    "SDPA (memory-efficient, boolean mask) a scale",
+                    bound_ms(xs, ys_lse, flops),
+                    max(s["errs"]["forward"] for s in sc), tag),
+        time_kernel("attfuse_backward", src, replaces, shape,
+                    step["backward"], step["plain_both"],
+                    step["sdpa_backward"],
+                    "SDPA's backward (memory-efficient) a scale",
+                    bound_ms(xs + ys_lse + [s["gy"] for s in sc], xs,
+                             2 * flops),
+                    max(s["errs"]["backward"] for s in sc), tag),
+    ]
+
+
+def phase_attfuse_spans(tr: dict, tag: dict) -> None:
+    """The attfuse path's train step on its first batch, with the recorder
+    on, under the profiler (after as many warm-up steps in the trace): the
+    device ms a step of the spans ``fusion.attfuse`` and
+    ``fusion.attfuse_backward`` against the profiler's device time a step
+    of the kernels inside them, within TOL_ATTFUSE_SPANS; each span and
+    the ``fusion.attfuse_slots`` counter once a scale a step, the counter
+    at its flagged tile pairs' value."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from mrp_gnn_tpu_torch.utils import profiling
+    x, n = tr["inputs"][0], ATTFUSE_SPAN_STEPS
+    g = x[3]
+    step = lambda: tr["step"](tr["state"], *x)  # noqa: E731
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up ends, the kept steps start
+        profiling.reset()
+        profiling.enable()
+        try:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            snap = profiling.snapshot()
+        finally:
+            profiling.disable()
+            profiling.reset()
+        prof.step()
+    kern = {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "attfuse_" in e.key}
+    prof_ms = {
+        "fusion.attfuse": sum(v for k, v in kern.items()
+                              if "attfuse_forward_kernel" in k),
+        "fusion.attfuse_backward": sum(
+            v for k, v in kern.items()
+            if "attfuse_delta_kernel" in k or "attfuse_backward_kernel" in k)}
+    span_ms, per_step = {}, {}
+    for name in prof_ms:
+        spans = [s for s in snap["spans"] if s["name"] == name]
+        span_ms[name] = sum(s["device_ms"] for s in spans) / n
+        per_step[name] = len(spans) / n
+    counts = [c["n"] for c in snap["counts"]
+              if c["name"] == "fusion.attfuse_slots"]
+    per_step["fusion.attfuse_slots"] = len(counts) / n
+    m = A.graph_masks(g.ell_src, g.ell_mask, g.node_mask)
+    pairs = int(m.tiles[0].sum()) * A.TILE * A.TILE - int(g.node_mask.sum())
+    want_slots = pairs * sum(s * s for s, _ in ATTFUSE_SCALES) * n
+    ratio = {k: span_ms[k] / prof_ms[k] for k in prof_ms}
+    log(json.dumps({"metric": "attfuse_spans", "steps": n,
+                    "span_ms": span_ms, "profiler_ms": prof_ms,
+                    "span_over_profiler": ratio,
+                    "profiler_kernel_ms": kern, "per_step": per_step,
+                    "slots_counted": sum(counts), "slots_expected": want_slots,
+                    "timing": "device ms a step: the spans' CUDA events "
+                              "(recorded by the launcher) and the profiler's "
+                              "kernel time over the same steps", **tag}))
+    if per_step != {"fusion.attfuse": 3, "fusion.attfuse_backward": 3,
+                    "fusion.attfuse_slots": 3}:
+        raise AssertionError(f"attfuse spans and counts a step: {per_step}")
+    if sum(counts) != want_slots:
+        raise AssertionError(f"fusion.attfuse_slots counted {sum(counts)}, "
+                             f"expected {want_slots}")
+    if any(abs(r - 1) > TOL_ATTFUSE_SPANS for r in ratio.values()):
+        raise AssertionError(f"the attfuse spans read {ratio} of the "
+                             "profiler's kernel time")
 
 
 def crafted_wide_graph():
@@ -2767,12 +3057,14 @@ PATH_BODIES = {
     "max": (("ell_max_kernel",), ()),
     "block": (("block_attention_f32_kernel",), ("block_attention_kernel",)),
     "bsp2": (("weights_rows_kernel", "spmm_vec_kernel"), ("weights_kernel",)),
+    "attfuse": (("attfuse_graph_kernel", "attfuse_forward_kernel"), ()),
 }
 
 
 TRAIN_BODIES = {"attention": ("sddmm_wide_kernel", "spmm_t_staged_kernel"),
                 "mean": ("spmm_t_staged_kernel",),
-                "bsp2": ("spmm_kernel", "spmm_t_staged_kernel")}
+                "bsp2": ("spmm_kernel", "spmm_t_staged_kernel"),
+                "attfuse": ("attfuse_delta_kernel", "attfuse_backward_kernel")}
 TRAIN_NOT_RUN = ("spmm_t_kernel", "spmm_t2_kernel")
 
 
@@ -4821,6 +5113,7 @@ def main() -> int:
         gk = phase_gather_kernels(dev, ek, bk2)
         sk = phase_softmax_form_kernels(dev, ek, bk2)
         ok = phase_optimizer_kernels(dev)
+        ak = phase_attfuse_kernels(dev)
     m = swarm_config().model
     h = m.num_fusion_layers * m.attention_heads
     L = m.num_fusion_layers
@@ -4847,6 +5140,12 @@ def main() -> int:
         "bsp2": (native_swarm_config(), {"bsp_weights": h, "bsp_spmm": h},
                  {"bsp_weights": h, "bsp_spmm": 2 * h, "bsp_sddmm": h,
                   "bsp_spmm_t": 2 * h}, kernel_swap(bsp.with_bsp_attention)),
+        # One AttFuse a stage: its masks and forward at each of 3 scales,
+        # the backward's two launches at each.
+        "attfuse": (attfuse_config(), {"attfuse_graph": 3,
+                                       "attfuse_forward": 3},
+                    {"attfuse_graph": 3, "attfuse_forward": 3,
+                     "attfuse_backward": 6}, None),
     }
     serve, tr = {}, {}
     with phase("serving"):
@@ -4868,10 +5167,13 @@ def main() -> int:
         phase_spmm_t_form_timings(tk, bk2, tag)
         phase_variant_timings(kin, ek, tag)
         kernels += phase_optimizer_timings(ok, tag)
+        kernels += phase_attfuse_timings(ak, tag)
+        phase_attfuse_spans(tr["attfuse"], tag)
         check_path_bodies("attention", phase_train_timings(tr["attention"],
                                                            tag),
                           "train profile")
-        for path in ("hideg", "mean", "max", "block", "ell", "bsp2"):
+        for path in ("hideg", "mean", "max", "block", "ell", "bsp2",
+                     "attfuse"):
             served = predictor_timings(serve[path], tag, path)
             trained = phase_train_timings(tr[path], tag, loop=path == "bsp2",
                                           inner=10)
@@ -4895,7 +5197,8 @@ def main() -> int:
                 "block_attention": "block", "ell_sddmm": "ell",
                 "ell_softmax": "ell", "ell_spmm": "ell",
                 "bsp_weights": "bsp2", "bsp_spmm_t": "bsp2",
-                "bsp_spmm_t2": "hideg"}
+                "bsp_spmm_t2": "hideg", "attfuse_graph": "attfuse",
+                "attfuse_forward": "attfuse", "attfuse_backward": "attfuse"}
     for k in kernels:
         k["launches"] = tr[own_path.get(k["name"], "attention")]["launches"][k["name"]]
     if sorted(k["name"] for k in kernels) != sorted(bsp.KERNELS):

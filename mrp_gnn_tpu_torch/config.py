@@ -28,7 +28,9 @@ class ModelConfig:
     in_channels: int = 3
     # Channel width per encoder stage; each stage downsamples 2x.
     encoder_channels: Tuple[int, ...] = (32, 64, 128)
-    # Robot-graph fusion at the bottleneck: "none" | "mean" | "attention".
+    # Robot-graph fusion at the bottleneck: "none" | "mean" | "attention"
+    # | "max"; or "attfuse": per-pixel attention at every encoder stage
+    # (num_fusion_layers = the number of stages; the port's own).
     fusion: str = "attention"
     num_fusion_layers: int = 1
     attention_dim: int = 64

@@ -1,5 +1,7 @@
 """Robot-graph message-passing fusion layer (port of
-``mrp_gnn_tpu/models/fusion.py``).
+``mrp_gnn_tpu/models/fusion.py``), and :class:`AttFuse`, the per-pixel
+cross-robot attention of ``fusion="attfuse"``, which the JAX package does
+not have.
 
 SDDMM -> segment softmax -> SpMM over the batch graph, then a 1x1-conv fuse
 of ego features with the aggregated message. The edge ops come from
@@ -141,3 +143,27 @@ class GraphFusionLayer(nn.Module):
         out = feats + F.relu(fused)
         # Zero padded node slots so downstream stats never see them.
         return out * graph.node_mask[:, None, None, None].to(out.dtype)
+
+
+class AttFuse(nn.Module):
+    """OPV2V's attentive intermediate fusion (``AttFusion`` of OpenCOOD,
+    Xu et al., ICRA 2022): per pixel, each robot's C-wide feature attends
+    over itself and its graph neighbours with q = k = v = its features and
+    a 1/sqrt(C) scale; no parameters. Padded slots give 0; a robot with no
+    neighbour gets its own map back. The edge block is the ops' ``attfuse``
+    (``ops/attfuse.py``: kernels on CUDA ELL batches). Single-device only:
+    a shard context or a batch that carries a partition plan is refused."""
+
+    def __init__(self, ops_impl: str = "xla"):
+        super().__init__()
+        self.ops_impl = ops_impl
+
+    def forward(self, feats: torch.Tensor, graph: GraphBatch,
+                ops_impl: str | None = None, shard=None) -> torch.Tensor:
+        """feats: [V, C, h, w] one encoder stage's maps -> fused, same
+        shape."""
+        if shard is not None or graph.partition_plan is not None:
+            raise ValueError("AttFuse runs on one device: no model-axis "
+                             "shard and no partition plan")
+        ops = dispatch.get_ops(ops_impl or self.ops_impl, feats.device)
+        return ops.attfuse(feats, graph)

@@ -1,6 +1,13 @@
 """Full multi-robot perception network: encoder -> graph fusion -> decoder
 (port of ``mrp_gnn_tpu/models/net.py``).
 
+With ``fusion="attfuse"`` (the port's own, no JAX counterpart) one
+parameter-free :class:`AttFuse` per encoder stage, ``fusion{i}`` on stage
+i's output, fuses every scale, as OpenCOOD's ``AttBEVBackbone``: the
+decoder takes the fused skips and the fused bottleneck, while the encoder
+goes on with the unfused maps. It needs ``num_fusion_layers`` equal to the
+number of stages.
+
 Forward: (images [V, H, W, 3], GraphBatch) -> dict of dense predictions,
 NHWC like the JAX model: "bottleneck", "fused", "decoder" [V, h, w, C],
 "depth" [V, H, W] f32 and "seg_logits" [V, H, W, K] f32 (if configured).
@@ -19,7 +26,7 @@ from mrp_gnn_tpu_torch.config import ModelConfig
 from mrp_gnn_tpu_torch.graph import GraphBatch
 from mrp_gnn_tpu_torch.models.decoder import Decoder, DepthHead, SegHead
 from mrp_gnn_tpu_torch.models.encoder import Encoder
-from mrp_gnn_tpu_torch.models.fusion import GraphFusionLayer
+from mrp_gnn_tpu_torch.models.fusion import AttFuse, GraphFusionLayer
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +52,15 @@ class MultiRobotPerceptionNet(nn.Module):
         self.encoder = Encoder(chans, cfg.in_channels, cfg.norm_groups, dtype)
         self.num_fusion_layers = (cfg.num_fusion_layers
                                   if cfg.fusion != "none" else 0)
+        if cfg.fusion == "attfuse" and cfg.num_fusion_layers != len(chans):
+            raise ValueError(
+                f"fusion 'attfuse' fuses each of the {len(chans)} encoder "
+                f"stages: num_fusion_layers must be {len(chans)}, not "
+                f"{cfg.num_fusion_layers}")
         for i in range(self.num_fusion_layers):
+            if cfg.fusion == "attfuse":
+                self.add_module(f"fusion{i}", AttFuse(ops_impl))
+                continue
             self.add_module(f"fusion{i}", GraphFusionLayer(
                 chans[-1], aggregation=cfg.fusion,
                 attention_dim=cfg.attention_dim,
@@ -73,8 +88,14 @@ class MultiRobotPerceptionNet(nn.Module):
         skips, bottleneck = self.encoder(x, shard)
         out = {"bottleneck": _nhwc(bottleneck)}
         fused = bottleneck
-        for i in range(self.num_fusion_layers):
-            fused = getattr(self, f"fusion{i}")(fused, graph, ops_impl, shard)
+        if cfg.fusion == "attfuse":
+            skips = [getattr(self, f"fusion{i}")(s, graph, ops_impl, shard)
+                     for i, s in enumerate(skips)]
+            fused = skips[-1]
+        else:
+            for i in range(self.num_fusion_layers):
+                fused = getattr(self, f"fusion{i}")(fused, graph, ops_impl,
+                                                    shard)
         out["fused"] = _nhwc(fused)
         dec = self.decoder(skips, fused, shard)
         out["decoder"] = _nhwc(dec)

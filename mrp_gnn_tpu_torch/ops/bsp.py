@@ -112,15 +112,17 @@ SPMM_VEC_MIN_D = 2048
 # bsp2 path's shape on the card (PERF.md section 6).
 WEIGHTS_FORMS = ("block", "rows")
 # The CUDA sources of the port (csrc/<name>.cu); adamw.cu is the
-# optimizer's (ops/adamw.py).
+# optimizer's (ops/adamw.py), attfuse.cu AttFuse's (ops/attfuse.py).
 SOURCES = ("bsp_fused_attention", "bsp_sddmm", "bsp_spmm", "bsp_spmm_t",
            "bsp_fused_parts", "bsp_weights", "ell_max", "ell_softmax",
-           "block_attention", "adamw")
+           "block_attention", "adamw", "attfuse")
 # Launch counts by wrapper: name -> (module of mrp_gnn_tpu_torch.ops,
 # wrapper). ell_spmm and ell_sddmm launch bsp_spmm.cu and bsp_sddmm.cu, and
 # count apart from bsp_spmm and bsp_sddmm; bsp_spmm_t2 is the dual form of
 # bsp_spmm_t.cu, counted apart from bsp_spmm_t; adamw_grad_norm and
-# adamw_update are the two entry points of adamw.cu.
+# adamw_update are the two entry points of adamw.cu; attfuse_graph,
+# attfuse_forward and attfuse_backward (two launches a call) those of
+# attfuse.cu.
 _WRAPPERS = {
     "bsp_fused_attention": ("bsp", "fused_attention"),
     "bsp_weights": ("bsp", "attention_weights"),
@@ -136,6 +138,9 @@ _WRAPPERS = {
     "block_attention": ("edge", "block_attention"),
     "adamw_grad_norm": ("adamw", "grad_norm"),
     "adamw_update": ("adamw", "adamw_update"),
+    "attfuse_graph": ("attfuse", "graph_masks"),
+    "attfuse_forward": ("attfuse", "forward"),
+    "attfuse_backward": ("attfuse", "backward"),
 }
 KERNELS = tuple(_WRAPPERS)
 _VALUE_TYPES = (torch.float32, torch.bfloat16)

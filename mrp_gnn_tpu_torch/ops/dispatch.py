@@ -16,7 +16,11 @@ kernel backend, which routes as the JAX Pallas backend does:
   with a row-expanded plan -> the SpMM over the expanded view
   (``bsp.expanded_mean``); the backward runs the transposed SpMM;
 - max, any ELL batch -> the masked max kernel (``ell.ell_max``);
-- ELL attention and mean without a plan -> the plain ELL composition.
+- ELL attention and mean without a plan -> the plain ELL composition;
+- AttFuse (``fusion="attfuse"``, :mod:`ops.attfuse`), any CUDA ELL batch
+  -> the AttFuse forward and backward kernels, computing in float32 (a
+  width or slot count they are not built for raises); the other layouts
+  -> its plain form.
 
 ``resolve_impl("auto", device)`` gives ``"pallas"`` for CUDA and ``"xla"``
 otherwise; on CPU tensors the kernel wrappers run their plain versions.
@@ -30,6 +34,7 @@ from typing import Callable
 
 import torch
 
+from mrp_gnn_tpu_torch.ops import attfuse as A
 from mrp_gnn_tpu_torch.ops import bsp as B
 from mrp_gnn_tpu_torch.ops import ell as E
 from mrp_gnn_tpu_torch.ops import reference as R
@@ -50,6 +55,8 @@ class EdgeOps:
     ell_attention: Callable | None = None
     ell_mean: Callable | None = None
     ell_max: Callable | None = None
+    # AttFuse, any layout: (maps [V, C, h, w], graph) -> fused maps.
+    attfuse: Callable | None = None
     impl: str = "xla"
 
 
@@ -69,11 +76,16 @@ def _ell_max_plain(values, graph):
     return R.ell_aggregate(None, values, graph.ell_src, graph.ell_mask, "max")
 
 
+def _attfuse_plain(x, graph):
+    return A.attfuse(x, graph, kernels=False)
+
+
 def _plain_ops() -> EdgeOps:
     return EdgeOps(R.sddmm, R.segment_softmax, R.spmm, R.segment_mean_agg,
                    R.segment_max_agg,
                    R.block_fused_attention, R.block_mean_agg, R.block_max_agg,
-                   _ell_attention_plain, _ell_mean_plain, _ell_max_plain)
+                   _ell_attention_plain, _ell_mean_plain, _ell_max_plain,
+                   _attfuse_plain)
 
 
 def _kernel_ops() -> EdgeOps:
@@ -94,10 +106,13 @@ def _kernel_ops() -> EdgeOps:
     def ell_max(values, graph):
         return E.ell_max(values, graph.ell_src, graph.ell_mask)
 
+    def attfuse(x, graph):
+        return A.attfuse(x, graph, kernels=True)
+
     return EdgeOps(R.sddmm, R.segment_softmax, R.spmm, R.segment_mean_agg,
                    R.segment_max_agg,
                    R.block_fused_attention, R.block_mean_agg, R.block_max_agg,
-                   ell_attention, ell_mean, ell_max, impl="pallas")
+                   ell_attention, ell_mean, ell_max, attfuse, impl="pallas")
 
 
 _BACKENDS = {"xla": _plain_ops, "pallas": _kernel_ops}

@@ -18,6 +18,14 @@ work where it happens with :func:`span` and :func:`count`:
   children ``serve.copy_in``, ``serve.forward`` (a device span around
   enqueueing the forward), ``serve.wait`` (a wait on the forward's end)
   and ``serve.copy_out``.
+- ``fusion.attfuse``, a launch span (:func:`launch_span`: the kernel's
+  launcher records its events) around each launch of AttFuse's forward
+  kernel (``ops/attfuse.py``; a device span around its plain forward
+  elsewhere), one per fused scale; ``fusion.attfuse_backward``, the same
+  around its backward's launches (its plain backward); and the counter
+  ``fusion.attfuse_slots``, the (destination slot, source slot, pixel)
+  triples whose logit a call computes, the real robots' own pairs left
+  out (a device tensor on the card, read at the snapshot).
 
 Off, :func:`span` returns one shared no-op context manager after one flag
 test and :func:`count` returns at once: no clock read, no CUDA event, no
@@ -75,6 +83,9 @@ class _Off:
 
     def wait(self) -> None:
         pass
+
+    def handles(self) -> tuple:
+        return None, None
 
 
 _OFF = _Off()
@@ -152,11 +163,11 @@ def _event():
 
 
 class _Span:
-    __slots__ = ("name", "device", "id", "parent", "root", "t0", "c0",
-                 "start", "end", "range", "stack")
+    __slots__ = ("name", "device", "launch", "id", "parent", "root", "t0",
+                 "c0", "start", "end", "range", "stack")
 
-    def __init__(self, name: str, device: bool):
-        self.name, self.device = name, device
+    def __init__(self, name: str, device: bool, launch: bool = False):
+        self.name, self.device, self.launch = name, device, launch
 
     def __enter__(self):
         self.stack = _buf.stack()
@@ -170,7 +181,8 @@ class _Span:
                 PREFIX + self.name)
             self.range.__enter__()
         self.start = _event() if self.device else None
-        self.end = None
+        # a launch span's events are recorded again by the launch itself
+        self.end = _event() if self.launch else None
         self.c0 = time.thread_time_ns()
         self.t0 = time.time_ns()
         return self
@@ -183,7 +195,8 @@ class _Span:
                "parent": self.parent, "root": self.root,
                "cpu_ns": c1 - self.c0, "device_ms": None}
         if self.start is not None:
-            self.end = _event()
+            if not self.launch:
+                self.end = _event()
             _pending.add(self.start, self.end, rec)
         if self.range is not None:
             self.range.__exit__(None, None, None)
@@ -197,6 +210,13 @@ class _Span:
         if self.end is not None:
             self.end.synchronize()
 
+    def handles(self) -> tuple:
+        """A launch span's raw start and end CUDA events (None where no
+        CUDA context is up), for the launcher to record."""
+        if self.start is None:
+            return None, None
+        return self.start.cuda_event, self.end.cuda_event
+
 
 def span(name: str, device: bool = False):
     """A context manager that records ``name`` over its body while the
@@ -207,8 +227,22 @@ def span(name: str, device: bool = False):
     return _Span(name, device)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Records ``n`` under ``name`` now, while the recorder is on."""
+def launch_span(name: str):
+    """A device span around one kernel launch made outside PyTorch (a
+    ctypes call). Its ``handles()`` gives the raw start and end CUDA
+    events (None, None while the recorder is off or no CUDA context is
+    up), which the launcher records on its stream right before and after
+    the launch, so that the span holds the kernel alone: no host work and
+    no wait for the interpreter lock lies between its events."""
+    if not _on or torch.compiler.is_compiling():
+        return _OFF
+    return _Span(name, True, launch=True)
+
+
+def count(name: str, n=1) -> None:
+    """Records ``n`` under ``name`` now, while the recorder is on. ``n``
+    is an int, or a 0-dim integer tensor whose value :func:`snapshot`
+    reads (a count known on the device only costs no sync here)."""
     if not _on or torch.compiler.is_compiling():
         return
     parent, root = _cause()
@@ -247,7 +281,8 @@ def snapshot() -> dict:
     - ``spans``: {"name", "start_ns", "end_ns", "thread", "id", "parent",
       "root", "cpu_ns", "device_ms"} each (``device_ms`` None but for
       device spans on a card);
-    - ``counts``: {"name", "t_ns", "n", "thread", "parent", "root"} each;
+    - ``counts``: {"name", "t_ns", "n", "thread", "parent", "root"} each
+      (``n`` an int);
     - ``dropped``: the records the bound has dropped since :func:`reset`.
 
     Waits for the device where a device span's end has not passed yet."""
@@ -255,8 +290,12 @@ def snapshot() -> dict:
     with _buf.lock:
         recs = [dict(r) for r in _buf.records]
         dropped = _buf.added - len(recs)
+    counts = [r for r in recs if "t_ns" in r]
+    for r in counts:
+        if isinstance(r["n"], torch.Tensor):
+            r["n"] = int(r["n"])
     return {"spans": [r for r in recs if "t_ns" not in r],
-            "counts": [r for r in recs if "t_ns" in r], "dropped": dropped}
+            "counts": counts, "dropped": dropped}
 
 
 @contextlib.contextmanager

@@ -297,6 +297,50 @@ def test_train_step_records_its_parts_and_changes_no_bit():
 
 
 @pytest.mark.usefixtures("one_thread")
+def test_a_launch_span_hands_out_its_events_to_the_launch():
+    """Off: no events to record. On without a CUDA context: none either,
+    and the span is recorded with no device time."""
+    with P.launch_span("k") as s:
+        assert s.handles() == (None, None)
+    assert P.snapshot()["spans"] == []
+    P.enable()
+    with P.launch_span("k") as s:
+        assert s.handles() == (None, None)
+    (rec,) = P.snapshot()["spans"]
+    assert rec["name"] == "k" and rec["device_ms"] is None
+
+
+def test_attfuse_records_its_spans_and_count_once_a_scale():
+    """A traced CPU step of ``fusion="attfuse"``: one ``fusion.attfuse``
+    and one ``fusion.attfuse_backward`` span a fused scale inside the step
+    (host spans here: no device time) and one ``fusion.attfuse_slots``
+    count each, the plain form's V x V pairs a pixel less the robots'
+    own."""
+    cfg = _cfg()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, fusion="attfuse", num_fusion_layers=3))
+    state = TT.create_train_state(cfg, "cpu")
+    step = TT.make_train_step(cfg, state.model, state.optimizer)
+    it = make_train_iterator(cfg.data)
+    try:
+        batch = TT.batch_to_device(next(it), "cpu")
+    finally:
+        it.close()
+    P.enable()
+    step(state, *batch)
+    snap = P.snapshot()
+    spans = _by_name(snap)
+    root = spans["train.step"][0]["id"]
+    for name in ("fusion.attfuse", "fusion.attfuse_backward"):
+        assert len(spans[name]) == 3
+        assert all(s["root"] == root and s["device_ms"] is None
+                   for s in spans[name])
+    counts = [c for c in snap["counts"] if c["name"] == "fusion.attfuse_slots"]
+    V, real = batch[-1].max_nodes, int(batch[-1].node_mask.sum())
+    assert [c["n"] for c in counts] == [(V * V - real) * p
+                                        for p in (64, 16, 4)]
+
+
 def test_predictor_records_a_request_and_changes_no_bit():
     pred, images = _predictor()
     want = pred(images)
